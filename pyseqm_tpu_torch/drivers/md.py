@@ -1,0 +1,276 @@
+"""Born-Oppenheimer molecular dynamics: the NVE base driver.
+
+PyTorch counterpart of the base of ``pyseqm_tpu/drivers/md.py`` (cf. the
+reference seqm/MolecularDynamics.py:158-432): velocity Verlet around an SCF
+force call, the velocity-rescale and energy-shift thermostats, observables,
+and a ``run`` loop with thermo lines between chunks of steps.
+
+Units: Angstrom, fs, eV, g/mol, Kelvin (same as the reference).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from ..constants import Constants
+from ..models.energy import SEQMConfig, _species_tensor, check_species, force
+
+# Unit conversions (MolecularDynamics.py:438-490):
+# 1 (eV/Angstrom)/(g/mol) = 0.009648... Angstrom/fs^2
+ACC_SCALE = 0.009648532800137615
+# sqrt(Kelvin / (g/mol)) = 0.000911836... Angstrom/fs
+VEL_SCALE = 0.9118367323190634e-3
+# (g/mol) (Angstrom/fs)^2 = 103.64... eV
+KE_SCALE = 1.0364270099032438e2
+# 1 eV = 11604.5 Kelvin
+EV_PER_KELVIN = 1.160451812e4
+
+
+def atom_masses(const: Constants, species):
+    """(..., 1) masses for F/m; padding gets mass 1 to keep acc finite."""
+    m = const.mass[species]
+    return torch.where(species > 0, m, torch.ones_like(m))[..., None]
+
+
+def atom_masses_zero_pad(const: Constants, species):
+    """(..., 1) masses with 0 for padding (kinetic energy, COM sums)."""
+    return const.mass[species][..., None]
+
+
+def kinetic_energy(const: Constants, species, velocities):
+    """(Ek [eV], T [K]) per molecule (cf. MolecularDynamics.py:229-233)."""
+    mass = atom_masses_zero_pad(const, species)
+    Ek = (0.5 * mass * velocities ** 2).sum(dim=(1, 2)) * KE_SCALE
+    ndof = 1.5 * (species > 0).sum(dim=1).to(Ek.dtype)
+    return Ek, Ek * EV_PER_KELVIN / ndof
+
+
+def initialize_velocity(const: Constants, species, coordinates,
+                        generator: Optional[torch.Generator] = None,
+                        Temp=300.0, vel_com=True):
+    """Maxwell-Boltzmann velocities at Temp (cf. MolecularDynamics.py:181),
+    drawn from ``generator``."""
+    mass = atom_masses(const, species)
+    scale = torch.sqrt(Temp / mass) * VEL_SCALE
+    v = torch.randn(coordinates.shape, generator=generator,
+                    dtype=coordinates.dtype,
+                    device=coordinates.device) * scale
+    v = torch.where((species > 0)[..., None], v, torch.zeros_like(v))
+    if vel_com:
+        _, v = zero_com(const, species, coordinates, v)
+    return v
+
+
+def zero_com(const: Constants, species, coordinates, velocities):
+    """Remove COM position/velocity and rigid-body angular momentum, then
+    rescale to conserve temperature (cf. MolecularDynamics.py:195-227)."""
+    mass = atom_masses_zero_pad(const, species)
+    Mtot = mass.sum(dim=1, keepdim=True)
+    _, T0 = kinetic_energy(const, species, velocities)
+
+    r_com = (mass * coordinates).sum(dim=1, keepdim=True) / Mtot
+    x = coordinates - r_com
+    v_com = (mass * velocities).sum(dim=1, keepdim=True) / Mtot
+    v = velocities - v_com
+
+    L = (mass * torch.linalg.cross(x, v, dim=-1)).sum(dim=1)
+    r2 = (x * x).sum(dim=-1, keepdim=True)
+    eye = torch.eye(3, dtype=x.dtype, device=x.device)
+    inertia = ((mass[..., None] * r2[..., None] * eye).sum(dim=1)
+               - (mass[..., None] * x[..., :, None] * x[..., None, :])
+               .sum(dim=1))
+    omega = torch.linalg.solve(inertia, L[..., None])[..., 0]
+    v = v + torch.linalg.cross(x, omega[:, None, :].expand_as(x), dim=-1)
+    _, T1 = kinetic_energy(const, species, v)
+    alpha = torch.sqrt(T0 / torch.where(T1 > 0, T1, torch.ones_like(T1)))
+    v = v * alpha[:, None, None]
+    v = torch.where((species > 0)[..., None], v, torch.zeros_like(v))
+    return x, v
+
+
+@dataclasses.dataclass(frozen=True)
+class MDConfig:
+    timestep: float = 1.0               # fs
+    # velocity rescale every freq steps to T0: (freq, T0)
+    scale_vel: Optional[Tuple[int, float]] = None
+    control_energy_shift: bool = False
+    remove_com: Optional[int] = None    # every N steps
+
+
+@dataclasses.dataclass
+class MDState:
+    """MD state: (coords, vel, acc, P, E0, step)."""
+    coordinates: torch.Tensor
+    velocities: torch.Tensor
+    acc: torch.Tensor
+    P: torch.Tensor                     # converged density (next SCF guess)
+    E0: torch.Tensor                    # initial total energy
+    step: int
+
+
+class Observables(NamedTuple):
+    Ek: torch.Tensor
+    T: torch.Tensor
+    Epot: torch.Tensor
+    dipole: torch.Tensor
+    charges: torch.Tensor
+
+
+def atomic_charges(const: Constants, species, P):
+    """Mulliken charges from the density diagonal (MolecularDynamics.py:275)."""
+    nmol, A = species.shape
+    q_el = torch.diagonal(P, dim1=1, dim2=2).reshape(nmol, A, 4).sum(dim=2)
+    return const.tore[species] - q_el
+
+
+def atomic_charges_packed(const: Constants, species, Pp, K: int):
+    """Mulliken charges from a static-packed density (atoms [0, K) keep
+    their 4-orbital block, later atom slots only their s orbital)."""
+    nmol, A = species.shape
+    d = torch.diagonal(Pp, dim1=1, dim2=2)
+    heavy = d[:, :4 * K].reshape(nmol, K, 4).sum(dim=2)
+    q_el = torch.cat([heavy, d[:, 4 * K:4 * K + (A - K)]], dim=1)
+    return const.tore[species] - q_el
+
+
+def dipole(q, coordinates):
+    return (q[..., None] * coordinates).sum(dim=1)
+
+
+class MolecularDynamics:
+    """NVE velocity-Verlet driver (cf. Molecular_Dynamics_Basic).
+
+    Runs on the device of ``const``; ``charges`` (nmol,) are the net
+    molecular charges threaded into every energy and force evaluation.
+    """
+
+    def __init__(self, const: Constants, tables, seqm_cfg: SEQMConfig,
+                 md_cfg: MDConfig = MDConfig(), learned=None, charges=None):
+        self.const = const
+        self.tables = tables
+        self.seqm_cfg = seqm_cfg
+        self.md_cfg = md_cfg
+        self.learned = learned
+        self.device = const.device
+        self.charges = (None if charges is None else
+                        torch.as_tensor(charges, dtype=torch.long,
+                                        device=self.device))
+
+    def _charges_arg(self, charges):
+        return self.charges if charges is None else charges
+
+    def _species(self, species):
+        return _species_tensor(species, self.device)
+
+    def compute_force(self, species, state: MDState, charges=None):
+        """(force, P, Epot per molecule).  Override for bias forces."""
+        f, out = force(self.const, self.tables, self.seqm_cfg, species,
+                       state.coordinates, learned=self.learned, P0=state.P,
+                       charges=self._charges_arg(charges))
+        return f, out.P, out.Hf
+
+    def step(self, species, state: MDState,
+             charges=None) -> Tuple[MDState, Observables]:
+        species = self._species(species)
+        dt = self.md_cfg.timestep
+        mass = atom_masses(self.const, species)
+
+        v = state.velocities + 0.5 * state.acc * dt
+        x = state.coordinates + v * dt
+        st1 = dataclasses.replace(state, coordinates=x, velocities=v)
+        f, P, Epot = self.compute_force(species, st1, charges)
+        acc = f / mass * ACC_SCALE
+        v = v + 0.5 * acc * dt
+        state = dataclasses.replace(state, coordinates=x, velocities=v,
+                                    acc=acc, P=P, step=state.step + 1)
+        state = self._thermostat(species, state, Epot)
+        Ek, T = kinetic_energy(self.const, species, state.velocities)
+        q = atomic_charges(self.const, species, state.P)
+        return state, Observables(Ek, T, Epot, dipole(q, state.coordinates), q)
+
+    def _thermostat(self, species, state, Epot):
+        cfg = self.md_cfg
+        if cfg.scale_vel is not None and cfg.control_energy_shift:
+            raise ValueError("cannot fix temperature and energy shift together")
+        if cfg.scale_vel is not None:
+            freq, T0 = cfg.scale_vel
+            if state.step % freq == 0:
+                _, T = kinetic_energy(self.const, species, state.velocities)
+                alpha = torch.sqrt(T0 / torch.where(T > 0, T,
+                                                    torch.ones_like(T)))
+                state = dataclasses.replace(
+                    state, velocities=state.velocities * alpha[:, None, None])
+        if cfg.control_energy_shift:
+            Ek, _ = kinetic_energy(self.const, species, state.velocities)
+            shift = Ek + Epot - state.E0
+            ratio = (Ek - shift) / torch.where(Ek > 0, Ek, torch.ones_like(Ek))
+            alpha = torch.sqrt(torch.clamp(ratio, min=0.0))
+            alpha = torch.where(torch.isfinite(alpha), alpha,
+                                torch.zeros_like(alpha))
+            state = dataclasses.replace(
+                state, velocities=state.velocities * alpha[:, None, None])
+        return state
+
+    def _initial_velocities(self, species, coordinates, velocities,
+                            generator, Temp):
+        if velocities is not None:
+            return torch.as_tensor(velocities, dtype=coordinates.dtype,
+                                   device=self.device)
+        return initialize_velocity(self.const, species, coordinates,
+                                   generator, Temp)
+
+    def initialize(self, species, coordinates, velocities=None,
+                   generator: Optional[torch.Generator] = None,
+                   Temp=300.0) -> MDState:
+        """Initial MDState: velocities (drawn from ``generator`` unless
+        given) and the bootstrap SCF force, which fills acc and P."""
+        check_species(self.seqm_cfg, self.tables, species, self.charges)
+        species = self._species(species)
+        coordinates = torch.as_tensor(coordinates, dtype=self.const.dtype,
+                                      device=self.device)
+        velocities = self._initial_velocities(species, coordinates,
+                                              velocities, generator, Temp)
+        st = MDState(coordinates=coordinates, velocities=velocities,
+                     acc=torch.zeros_like(coordinates), P=None,
+                     E0=torch.zeros(species.shape[0], dtype=coordinates.dtype,
+                                    device=self.device), step=0)
+        f, P, Epot = self.compute_force(species, st)
+        Ek, _ = kinetic_energy(self.const, species, velocities)
+        mass = atom_masses(self.const, species)
+        return dataclasses.replace(st, acc=f / mass * ACC_SCALE, P=P,
+                                   E0=Epot + Ek)
+
+    def run(self, species, state, steps: int, thermo: int = 1,
+            molids=(0,), log: bool = True):
+        """Drive ``steps`` steps in chunks of ``thermo``, printing a thermo
+        line for ``molids`` after each chunk and removing COM motion at the
+        end of a chunk that crossed a ``remove_com`` boundary
+        (cf. MolecularDynamics.py:291-320)."""
+        species = self._species(species)
+        if log:
+            print("Step, Temp, E(kinetic), E(potential), E(total), "
+                  "dipole(x,y,z)")
+        rc = self.md_cfg.remove_com
+        done = 0
+        while done < steps:
+            n = min(thermo, steps - done)
+            for _ in range(n):
+                state, obs = self.step(species, state)
+            prev, done = done, done + n
+            if log:
+                cols = " ".join(
+                    f"{float(obs.T[m]):8.2f} {float(obs.Ek[m]):.6e} "
+                    f"{float(obs.Epot[m]):.6e} "
+                    f"{float(obs.Ek[m] + obs.Epot[m]):.6e} "
+                    f"{float(obs.dipole[m, 0]):.6e} "
+                    f"{float(obs.dipole[m, 1]):.6e} "
+                    f"{float(obs.dipole[m, 2]):.6e}" for m in molids)
+                print(f"{done:6d} {cols}", flush=True)
+            if rc and done // rc > prev // rc:
+                x, v = zero_com(self.const, species, state.coordinates,
+                                state.velocities)
+                state = dataclasses.replace(state, coordinates=x,
+                                            velocities=v)
+        return state

@@ -1,0 +1,93 @@
+"""PyTorch port on an NVIDIA GPU: the CUDA SP2 kernel against its plain
+version and the exact density, and a short float32 XL-BOMD run through the
+kernel against the CPU run of the same inputs.
+
+These tests need the card and skip without one.  They import neither JAX
+nor the JAX package, so they run where only PyTorch is installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+import pyseqm_tpu_torch as pt
+from pyseqm_tpu_torch.drivers.md import MDConfig
+from pyseqm_tpu_torch.drivers.xlbomd import XLBOMD
+from pyseqm_tpu_torch.ops import sp2_kernel
+from pyseqm_tpu_torch.scf import SCFConfig
+from pyseqm_tpu_torch.utils.molecules import make_batch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    pt.disable_tf32()
+    return torch.device("cuda")
+
+
+def _gap_case(B, n, nocc, seed):
+    rng = np.random.RandomState(seed)
+    Q, _ = np.linalg.qr(rng.randn(B, n, n))
+    evals = np.concatenate([-10.0 + 2.0 * rng.rand(B, nocc),
+                            2.0 + 6.0 * rng.rand(B, n - nocc)], axis=1)
+    F = np.einsum('bik,bk,bjk->bij', Q, evals, Q)
+    F = 0.5 * (F + np.swapaxes(F, -1, -2))
+    P = 2.0 * np.einsum('bik,k,bjk->bij', Q,
+                        (np.arange(n) < nocc).astype(np.float64), Q)
+    aii = np.diagonal(F, axis1=-2, axis2=-1)
+    ri = np.abs(F).sum(-1) - np.abs(aii)
+    h1, hN = (aii - ri).min(-1), (aii + ri).max(-1)
+    a0 = (np.eye(n)[None] * hN[:, None, None] - F) / (hN - h1)[:, None, None]
+    return a0.astype(np.float32), np.full((B,), float(nocc), np.float32), P
+
+
+@pytest.mark.parametrize("B,n,nocc", [(10240, 16, 5), (7, 16, 5),
+                                      (7, 32, 11), (7, 128, 40)])
+def test_kernel_matches_plain_and_exact(cuda, B, n, nocc):
+    a0, nocc_f, P_exact = _gap_case(B, n, nocc, 7)
+    a = torch.from_numpy(a0).to(cuda)
+    o = torch.from_numpy(nocc_f).to(cuda)
+    before = sp2_kernel.launches
+    P, iters = sp2_kernel.sp2_purify(a, o, 1.0e-5, return_iters=True)
+    torch.cuda.synchronize()
+    assert sp2_kernel.launches == before + 1
+    Pr, iters_r = sp2_kernel.sp2_purify_reference(a, o, 1.0e-5,
+                                                  return_iters=True)
+    # f32 SP2: the bounds of the JAX kernel's parity tests (5e-5); the
+    # kernel and its plain version sum in different orders
+    assert (P - Pr).abs().max().item() < 5.0e-5
+    Pn = P.double().cpu().numpy()
+    assert np.abs(Pn - P_exact).max() < 5.0e-5
+    half = Pn / 2.0
+    assert np.abs(half @ half - half).max() < 5.0e-5
+    assert ((iters > 0) & (iters <= sp2_kernel.MAX_ITER)).all()
+
+
+def test_xlbomd_f32_on_card_matches_cpu(cuda):
+    sp, co = make_batch(12, 8, jitter=0.02, seed=2)
+    K = pt.packed_heavy_count(sp)
+    scf = SCFConfig(eps=1.0e-5, converger=(2,), use_sp2=True, sp2_eps=1.0e-4,
+                    pack_heavy=K)
+    out = {}
+    for dev in ("cpu", cuda):
+        const, tables, cfg = pt.build("AM1", dtype=torch.float32, device=dev,
+                                      scf=scf)
+        md = XLBOMD(const, tables, cfg, MDConfig(timestep=0.4), k=5)
+        s = md.initialize(sp, co, velocities=np.zeros_like(co),
+                          initial_force=False)
+        n0 = sp2_kernel.launches
+        for _ in range(3):
+            s, obs = md.step(sp, s)
+        out[str(dev)] = (s, obs, sp2_kernel.launches - n0)
+    (sc, oc, lc), (sg, og, lg) = out["cpu"], out["cuda"]
+    assert lc == 0 and lg == 3          # one kernel launch per XL step
+    # f32 on two devices: different summation orders; the f32 bounds of
+    # test_torch_slice.py's f32-vs-f64 XL test
+    np.testing.assert_allclose(og.Epot.cpu().numpy(), oc.Epot.numpy(),
+                               rtol=0, atol=2e-4)
+    np.testing.assert_allclose(sg.coordinates.cpu().numpy(),
+                               sc.coordinates.numpy(), rtol=0, atol=2e-6)
