@@ -9,7 +9,8 @@ without any SCF: the dynamic density field follows
 with the k=3..9 coefficient tables of Niklasson et al., JCP 130, 214109
 (2009), folded so the history update is one weighted sum over a ring
 buffer Pt.  Bootstrapped by one full SCF; each step is one Hcore + one
-Fock + one SP2, and the electronic state lives in the static packed layout.
+Fock + one density solve (eigh or SP2), and the electronic state lives in
+the static packed layout.
 """
 from __future__ import annotations
 

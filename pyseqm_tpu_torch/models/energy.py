@@ -1,19 +1,22 @@
 """Single-point energy / force models (the flagship API).
 
 PyTorch counterpart of ``pyseqm_tpu/models/energy.py`` on the main path:
-the class-segmented dense integrals with the static packed SCF (cf. the
-reference Energy / Force modules, seqm/basics.py:253-390).
+the class-segmented dense integrals with the static packed SCF, and the
+orbital energies and per-MO atomic charges of ``eig=True`` (cf. the
+reference Energy / Force / Hamiltonian modules, seqm/basics.py:216-390).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Mapping, NamedTuple, Optional, Tuple, Union
+from typing import (Any, Callable, Dict, Mapping, NamedTuple, Optional,
+                    Tuple, Union)
 
 import numpy as np
 import torch
 
 from ..constants import Constants, disable_tf32, make_constants
-from ..ops.density import packed_solver_size, static_unpack_mat
+from ..ops.density import (orbital_permutation, packed_solver_size,
+                           static_unpack_mat, sym_eig)
 from ..ops.energy import (assemble_energies, elec_energy_isolated_atom,
                           elec_energy_tf, pair_nuclear_energy_dense)
 from ..ops.fock import fock_packed_split
@@ -33,6 +36,8 @@ class SEQMConfig:
     pair_outer_cutoff: float = 1.0e10
     # double-float STO overlap integrals on f32 (ops/overlap.py)
     precise_overlap: bool = True
+    # orbital energies e and per-MO atomic charges (cf. basics.py:291-299)
+    eig: bool = False
 
 
 class EnergyOutput(NamedTuple):
@@ -46,6 +51,21 @@ class EnergyOutput(NamedTuple):
     notconverged: torch.Tensor
     F: Optional[torch.Tensor] = None       # Fock matrix, (nmol, 4A, 4A)
     Hcore: Optional[torch.Tensor] = None   # core Hamiltonian, same layout
+    e: Optional[torch.Tensor] = None       # orbital energies (eig=True)
+    charge: Optional[torch.Tensor] = None  # (nmol, 4A, A) (eig=True)
+    w: Optional[Any] = None                # two-electron integrals
+
+
+class HamiltonianOutput(NamedTuple):
+    """The reference Hamiltonian module's return contract
+    (basics.py:216-249)."""
+    F: torch.Tensor
+    e: Optional[torch.Tensor]
+    P: torch.Tensor
+    Hcore: torch.Tensor
+    w: Any
+    charge: Optional[torch.Tensor]
+    notconverged: torch.Tensor
 
 
 LearnedParams = Union[Mapping[str, torch.Tensor],
@@ -64,6 +84,21 @@ def _atom_parameters(tables, method, sys: System,
             raise NotImplementedError(f"the learned {hook} hook is not "
                                       "ported yet")
     return p
+
+
+def _orbital_charges(sys: System, v: torch.Tensor) -> torch.Tensor:
+    """Per-MO atomic charge decomposition (cf. scf_loop.py:795-800).
+
+    v: eigenvectors in the permuted valid-first layout of sym_eig; returns
+    (nmol, 4A, A) where charge[n, mo, atom] is the sum of the squared MO
+    coefficients on that atom (zero for mo >= norb)."""
+    perm, _ = orbital_permutation(sys)
+    A = sys.species.shape[1]
+    onehot = torch.nn.functional.one_hot(perm // 4, A).to(v.dtype)
+    charge = torch.einsum('nrl,nra->nla', v ** 2, onehot)
+    idx = torch.arange(v.shape[-1], device=v.device)
+    keep = (idx[None, :] < sys.norb[:, None])[..., None]
+    return torch.where(keep, charge, torch.zeros_like(charge))
 
 
 def _packed_layout(cfg: SEQMConfig, A: int) -> Tuple[int, int]:
@@ -145,14 +180,45 @@ def energy(const: Constants, tables: Mapping[str, torch.Tensor],
     Eiso = elec_energy_isolated_atom(const, sys.species, p)
     Hf, Etot, Eel, Enuc, Eiso_sum = assemble_energies(
         const, sys, eel_tf, EnucAB, Eiso, cfg.hf_flag, pair_mask=enuc_mask)
+    F = static_unpack_mat(Fp, K, A)
+    e = charge = None
+    if cfg.eig:
+        # with_flag surfaces a molecule whose Jacobi sweeps failed (re-solved
+        # exactly inside sym_eig) in notconverged, as the SCF flag does
+        # (cf. scf_loop.py:753-762)
+        e, v, eig_failed = sym_eig(sys, F, eig_only=True, with_flag=True)
+        charge = _orbital_charges(sys, v)
+        notconverged = notconverged | eig_failed
     return EnergyOutput(Hf, Etot, Eel, Enuc, Eiso_sum, EnucAB,
-                        static_unpack_mat(Pp, K, A), notconverged,
-                        F=static_unpack_mat(Fp, K, A),
-                        Hcore=static_unpack_mat(M, K, A))
+                        static_unpack_mat(Pp, K, A), notconverged, F=F,
+                        Hcore=static_unpack_mat(M, K, A), e=e, charge=charge,
+                        w=w)
+
+
+def hamiltonian(const: Constants, tables: Mapping[str, torch.Tensor],
+                cfg: SEQMConfig, species, coordinates: torch.Tensor,
+                learned: Optional[LearnedParams] = None,
+                P0: Optional[torch.Tensor] = None,
+                charges=None) -> HamiltonianOutput:
+    """SCF-converged Hamiltonian-level quantities without the energy
+    readout: (F, e, P, Hcore, w, charge, notconverged), as the reference
+    Hamiltonian.forward returns them (basics.py:216-249)."""
+    out = energy(const, tables, cfg, species, coordinates, learned, P0,
+                 charges)
+    return HamiltonianOutput(out.F, out.e, out.P, out.Hcore, out.w,
+                             out.charge, out.notconverged)
+
+
+def _detach_tree(t):
+    if torch.is_tensor(t):
+        return t.detach()
+    if isinstance(t, tuple):
+        return type(t)(*[_detach_tree(u) for u in t])
+    return t
 
 
 def _detach(out):
-    return type(out)(*[t.detach() if torch.is_tensor(t) else t for t in out])
+    return type(out)(*[_detach_tree(t) for t in out])
 
 
 def force(const: Constants, tables: Mapping[str, torch.Tensor],

@@ -2,9 +2,9 @@
 
 PyTorch counterpart of ``pyseqm_tpu/models/xlbomd.py`` on its ``packed_io``
 route (cf. EnergyXL / ForceXL, seqm/XLBOMD.py:54-220): one Hcore build and
-one Fock build from the dynamic density field P, one purification D held
-constant under differentiation, and the XL functional
-E(D, P) = Tr(D F) - 1/2 Tr((F - Hcore) P), all in the static packed layout.
+one Fock build from the dynamic density field P, one density D (the packed
+eigensolver by default, or SP2) held constant under differentiation, and
+the XL functional E(D, P) = Tr(D F) - 1/2 Tr((F - Hcore) P), all in the static packed layout.
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ from typing import Mapping, NamedTuple, Optional, Tuple
 import torch
 
 from ..constants import Constants
-from ..ops.density import sp2
+from ..ops.density import sp2, sym_eig
 from ..ops.energy import (assemble_energies, elec_energy_isolated_atom,
                           elec_energy_xl_tf)
 from ..ops.fock import fock_packed_split
@@ -45,18 +45,21 @@ def energy_xl(const: Constants, tables: Mapping[str, torch.Tensor],
     if P.shape[-1] != n_st:
         raise ValueError(f"packed P has n={P.shape[-1]}, expected "
                          f"packed_solver_size={n_st}")
-    if not cfg.scf.use_sp2:
-        raise NotImplementedError("the eigh density path is not ported yet; "
-                                  "use SCFConfig(use_sp2=True)")
     sys = make_system(const, species, coordinates, charges,
                       cfg.pair_outer_cutoff, heavy_count=K)
     p = _atom_parameters(tables, cfg.method, sys, learned, coordinates)
     M, w = _integral_stack(const, sys, p, cfg, K, n_st)
     F = fock_packed_split(sys, P, M, w, p, K, n_st)
-    # D is built once from F and held constant (XLBOMD.py:124-128)
+    # D is built once from F and held constant (XLBOMD.py:124-128).  The
+    # eigh branch solves the packed F directly: the JAX package unpacks F,
+    # solves with pack_heavy and packs D again, which selects the same rows
+    # and applies the same 0/1 masks
     with torch.no_grad():
-        D = sp2(sys, F.detach(), cfg.scf.sp2_eps, pack_heavy=K,
-                prepacked=True)
+        if cfg.scf.use_sp2:
+            D = sp2(sys, F.detach(), cfg.scf.sp2_eps, pack_heavy=K,
+                    prepacked=True)
+        else:
+            D = sym_eig(sys, F.detach(), pack_heavy=K, prepacked=True)[1]
     EnucAB, enuc_mask = _nuclear_term(const, sys, w, cfg, p)
     Eiso = elec_energy_isolated_atom(const, sys.species, p)
     Hf, Etot, Eelec, Enuc, Eiso_sum = assemble_energies(

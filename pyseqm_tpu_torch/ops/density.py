@@ -1,14 +1,17 @@
-"""Density matrices by SP2 purification in the static packed layout.
+"""Density matrices by eigendecomposition or SP2 purification.
 
-PyTorch counterpart of the packed part of ``pyseqm_tpu/ops/density.py``
-(cf. the reference SP2.py and pack.py): the static compact-orbital packing
-helpers and ``sp2`` on its ``pack_heavy`` / ``prepacked`` routes.
+PyTorch counterpart of ``pyseqm_tpu/ops/density.py`` (cf. the reference
+diag.py, SP2.py and pack.py): the static compact-orbital packing helpers,
+``sym_eig`` on its ``prepacked`` / ``pack_heavy`` / orbital-permutation
+routes with the rescue of unconverged Jacobi molecules, and ``sp2`` on its
+``pack_heavy`` / ``prepacked`` routes.
 
 The algorithm is chosen by dtype and size, as the JAX package chooses it
-on its production backend: float32 at packed n <= 128 runs the purifier
-kernel's semantics (ops/sp2_kernel.py: the hand-written CUDA kernel on a
-card, its plain version on the CPU); float64 or n > 128 runs the loop of
-the JAX package's XLA path in plain torch.
+on its production backend: float32 at n <= 128 runs the kernels'
+semantics (ops/eigh_kernel.py and ops/sp2_kernel.py: the hand-written
+CUDA kernel on a card, its plain version on the CPU); float64 or larger n
+runs torch.linalg.eigh, or the loop of the JAX package's XLA-path SP2 in
+plain torch.
 """
 from __future__ import annotations
 
@@ -19,9 +22,15 @@ import torch
 import torch.nn.functional as nnf
 
 from ..system import System
+from . import eigh_kernel
+from .eigh_kernel import eigh_batched_checked
 from .sp2_kernel import MAX_N, sp2_purify
 
 SP2_MAX_ITER = 200
+
+# molecules re-solved by rescue_unconverged_panels (plain integer; reset by
+# callers that count)
+rescued = 0
 
 
 def orbital_mask(sys: System) -> torch.Tensor:
@@ -32,12 +41,188 @@ def orbital_mask(sys: System) -> torch.Tensor:
     return per_atom.reshape(sys.species.shape[0], -1)
 
 
+def orbital_permutation(sys: System):
+    """Stable permutation packing valid orbitals first; plus its inverse."""
+    invalid = (~orbital_mask(sys)).to(torch.int8)
+    perm = torch.argsort(invalid, dim=-1, stable=True)
+    inv = torch.argsort(perm, dim=-1)
+    return perm, inv
+
+
+def permute_mat(X, perm):
+    X = torch.take_along_dim(X, perm[:, :, None], dim=1)
+    return torch.take_along_dim(X, perm[:, None, :], dim=2)
+
+
 def _gershgorin(Xp):
     aii = torch.diagonal(Xp, dim1=-2, dim2=-1)
     ri = torch.abs(Xp).sum(dim=-1) - torch.abs(aii)
     h1 = (aii - ri).min(dim=-1).values
     hN = (aii + ri).max(dim=-1).values
     return h1, hN
+
+
+def _set_diag(X, diag):
+    """X with its diagonal replaced by ``diag`` (out of place)."""
+    eye = torch.eye(X.shape[-1], dtype=torch.bool, device=X.device)
+    return torch.where(eye, torch.diag_embed(diag), X)
+
+
+def _fill_padding_diag(Xp, norb, h1, hN, dx=0.005):
+    """Distinct large diagonal values on padding rows (cf. diag.py:120-130).
+
+    Spacing keeps padding eigenvalues non-degenerate so eigh stays
+    differentiable."""
+    n = Xp.shape[-1]
+    idx = torch.arange(n, device=Xp.device)
+    pad = idx[None, :] >= norb[:, None]
+    k = idx[None, :] - norb[:, None] + 1  # 1-based padding position
+    dE = hN - h1
+    val = (1.0 + dx * k.to(Xp.dtype)) * dE[:, None] + hN[:, None]
+    diag = torch.where(pad, val, torch.diagonal(Xp, dim1=-2, dim2=-1))
+    return _set_diag(Xp, diag)
+
+
+def _occupations(e, nocc, dtype, check_degeneracy: bool):
+    """Per-orbital occupation coefficients (0/1, or fractional across a
+    degenerate Fermi level when check_degeneracy; cf. construct_P,
+    diag.py:79-98, batched)."""
+    n = e.shape[-1]
+    idx = torch.arange(n, device=e.device)
+    if not check_degeneracy:
+        return (idx[None, :] < nocc[:, None]).to(dtype)
+    atol = 1.0e-7 if dtype == torch.float32 else 1.0e-14
+    homo = torch.clamp(nocc - 1, min=0)
+    e_homo = torch.take_along_dim(e, homo[:, None], dim=1)
+    cond = (torch.abs(e - e_homo) <= atol).to(torch.int32)
+    idx1 = torch.argmax(cond, dim=1)                          # first
+    idx2 = n - torch.argmax(torch.flip(cond, dims=[1]), dim=1)  # last + 1
+    frac = (nocc - idx1).to(dtype) / (idx2 - idx1).to(dtype)
+    one, zero = torch.ones_like(e), torch.zeros_like(e)
+    occ = torch.where(idx[None, :] < idx1[:, None], one,
+                      torch.where(idx[None, :] < idx2[:, None],
+                                  frac[:, None] * one, zero))
+    return occ.to(dtype)
+
+
+def _unpack_embed(Pp, n: int):
+    """Embed a compact (nmol, m, m) block back into (nmol, n, n)."""
+    m = Pp.shape[-1]
+    if m == n:
+        return Pp
+    return nnf.pad(Pp, (0, n - m, 0, n - m))
+
+
+def rescue_unconverged_panels(Fp, e0, v, resid):
+    """Re-solve molecules whose Jacobi sweeps stopped at MAX_SWEEPS
+    unconverged (resid > OFF_TOL) with torch.linalg.eigh, on those
+    molecules only.  Costs one host check when nothing failed.  Returns
+    (e, v, failed_mask); callers surface failed_mask like the SCF
+    notconverged flag (cf. reference diag.py:102-139, whose eigh is
+    always exact)."""
+    global rescued
+    bad = resid > eigh_kernel.OFF_TOL
+    if bool(bad.any()):
+        idx = torch.nonzero(bad).flatten()
+        ex, vx = torch.linalg.eigh(Fp[idx])
+        e0 = e0.index_put((idx,), ex.to(e0.dtype))
+        v = v.index_put((idx,), vx.to(v.dtype))
+        rescued += int(idx.numel())
+    return e0, v, bad
+
+
+def sym_eig(sys: System, F: torch.Tensor, eig_only: bool = False,
+            check_degeneracy: bool = False, pack_n: Optional[int] = None,
+            pack_heavy: Optional[int] = None, prepacked: bool = False,
+            with_flag: bool = False):
+    """Batched eigendecomposition of the Fock matrix (cf. sym_eig_trunc /
+    construct_P, diag.py:57-139).
+
+    Returns (e, P, v): orbital energies zero-padded after norb, the
+    density P = 2 V_occ V_occ^T in the caller's layout, and the
+    eigenvectors v in the solver's layout: permuted valid-first rows at
+    4A, or the static compact layout when pack_heavy is set.
+    ``eig_only`` returns (e, v); ``with_flag`` appends the mask of
+    molecules whose Jacobi sweeps failed and were re-solved exactly.
+
+    ``prepacked``: F is already in the static packed layout at
+    packed_solver_size(pack_heavy, A) and P (and e, at length n_st) stays
+    packed.  ``pack_heavy`` without ``prepacked`` packs a (nmol, 4A, 4A) F
+    for the solve and unpacks P.  Otherwise the valid orbitals are
+    permuted to the front at full 4A.  ``pack_n`` is not ported.
+    """
+    if pack_n is not None:
+        raise NotImplementedError("sym_eig with pack_n (pack_orbitals) is "
+                                  "not ported yet")
+    n = F.shape[-1]
+    A = sys.species.shape[1]
+    n_st = None
+    if prepacked:
+        if pack_heavy is None:
+            raise ValueError("prepacked=True requires pack_heavy")
+        n_st = packed_solver_size(pack_heavy, A)
+        if n_st is None or n != n_st:
+            raise ValueError(f"prepacked F has n={n}, expected "
+                             f"packed_solver_size={n_st}")
+    elif pack_heavy is not None:
+        n_st = static_pack_size(pack_heavy, A, multiple=16)
+        if n_st > 128:
+            n_st = static_pack_size(pack_heavy, A, multiple=128)
+        if n_st >= n:
+            n_st = None
+    if n_st is not None:
+        mfull = orbital_mask(sys).to(F.dtype)
+        mk = static_pack_vec(mfull, pack_heavy, n_st)
+        if prepacked:
+            Fp = F * (mk[:, :, None] * mk[:, None, :])
+        else:
+            Fp = static_pack_mat(F * (mfull[:, :, None] * mfull[:, None, :]),
+                                 pack_heavy, n_st)
+        h1, hN = _gershgorin(Fp)
+        # dead rows (interior p rows of lighter molecules, tail padding)
+        # get distinct above-spectrum diagonal values (cf. diag.py:120-130)
+        idxs = torch.arange(n_st, device=F.device)
+        val = ((1.0 + 0.005 * (idxs + 1).to(F.dtype)) * (hN - h1)[:, None]
+               + hN[:, None])
+        Fp = _set_diag(Fp, torch.where(mk == 0.0, val, torch.diagonal(
+            Fp, dim1=-2, dim2=-1)))
+        m = mk if prepacked else mfull
+
+        def unpack(a):
+            return a if prepacked else static_unpack_mat(a, pack_heavy, A)
+    else:
+        perm, inv = orbital_permutation(sys)
+        Fp = permute_mat(F, perm)
+        h1, hN = _gershgorin(Fp)
+        Fp = _fill_padding_diag(Fp, sys.norb, h1, hN)
+        m = orbital_mask(sys).to(F.dtype)
+
+        def unpack(a):
+            return permute_mat(_unpack_embed(a, n), inv)
+
+    if eigh_kernel.supported(Fp.shape[-1], F.dtype):
+        # the Jacobi kernel's semantics; molecules whose sweeps stopped at
+        # MAX_SWEEPS are re-solved exactly, as the reference's eigh cannot
+        # fail silently
+        e0, v, resid = eigh_batched_checked(Fp)
+        e0, v, eig_failed = rescue_unconverged_panels(Fp, e0, v, resid)
+    else:
+        e0, v = torch.linalg.eigh(Fp)
+        eig_failed = torch.zeros((F.shape[0],), dtype=torch.bool,
+                                 device=F.device)
+    ne = e0.shape[-1]
+    idx = torch.arange(ne, device=F.device)
+    e = torch.where(idx[None, :] < sys.norb[:, None], e0,
+                    torch.zeros_like(e0))
+    if ne < n:
+        e = nnf.pad(e, (0, n - ne))
+    if eig_only:
+        return (e, v, eig_failed) if with_flag else (e, v)
+
+    occ = _occupations(e0, sys.nocc, F.dtype, check_degeneracy)
+    Pp = 2.0 * torch.einsum('nik,nk,njk->nij', v, occ, v)
+    P = unpack(Pp) * (m[:, :, None] * m[:, None, :])
+    return (e, P, v, eig_failed) if with_flag else (e, P, v)
 
 
 def packed_heavy_count(species) -> int:

@@ -12,72 +12,34 @@ at the top of ``csrc/sp2.cu`` (FP32-FMA bound at the packed size n = 16;
 one block per molecule, X and X^2 in shared memory, per-molecule exit).
 
 The kernel builds at first use with nvcc into ``_build/`` next to this
-package and is loaded with ctypes.  ``sp2_purify`` launches it for CUDA
-tensors and raises if the build or the launch fails; for CPU tensors it
-runs ``sp2_purify_reference``, which repeats the kernel's arithmetic step
-by step.
+package and is loaded with ctypes (``ops/cuda_build.py``).  ``sp2_purify``
+launches it for CUDA tensors and raises if the build or the launch fails;
+for CPU tensors it runs ``sp2_purify_reference``, which repeats the
+kernel's arithmetic step by step.
 """
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
-import threading
 
 import torch
+
+from . import cuda_build
 
 MAX_ITER = 100
 MAX_N = 128
 EPS_FLOOR = 1.0e-5
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PKG_DIR, "csrc", "sp2.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+SOURCE = "sp2"
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+             ctypes.c_int, ctypes.c_void_p]
 
 # launches of the CUDA kernel (plain integer; reset by callers that count)
 launches = 0
 
-_lib = None
-_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    return path if os.path.exists(path) else "nvcc"
-
-
-def build() -> str:
-    """Compile csrc/sp2.cu into the build directory if the library is
-    missing or older than its source; returns the library path."""
-    lib_path = os.path.join(BUILD_DIR, "libsp2.so")
-    if (os.path.exists(lib_path)
-            and os.path.getmtime(lib_path) >= os.path.getmtime(_SOURCE)):
-        return lib_path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, _SOURCE]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{res.stderr}")
-    os.replace(tmp, lib_path)
-    return lib_path
-
 
 def _load():
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            fn = lib.sp2_purify_f32
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+    return cuda_build.load(SOURCE, "sp2_purify_f32", _ARGTYPES)
 
 
 def _check(a0: torch.Tensor, nocc: torch.Tensor):

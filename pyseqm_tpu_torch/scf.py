@@ -1,7 +1,9 @@
 """SCF engine on the static packed layout: converger 2 + backward mode 0.
 
 PyTorch counterpart of the packed part of ``pyseqm_tpu/scf.py`` (cf. the
-reference scf_loop.py:32-806).  Converger 2: two direct steps, one
+reference scf_loop.py:32-806).  Each iteration's density comes from the
+packed eigensolver (``sym_eig``, the default) or SP2 (``use_sp2``).
+Converger 2: two direct steps, one
 adaptive-mixing step, then Pulay DIIS.  The fixed point runs as a Python
 loop over masked batched updates: converged molecules stop changing but
 keep riding the batch, and the host checks convergence once per _CHUNK
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 from .constants import Constants
-from .ops.density import sp2, static_pack_mat
+from .ops.density import sp2, static_pack_mat, sym_eig
 from .ops.fock import fock_packed_split
 from .ops.matrix import grid_to_mat
 from .system import System
@@ -52,6 +54,9 @@ class SCFConfig:
     # density error, and ~8 contraction steps bring f32 forces to the
     # 1e-3 eV/A class.  None = auto: 8 for float32, 0 for float64.
     polish_iters: Optional[int] = None
+    # fractional occupations across a degenerate Fermi level
+    # (cf. diag.CHECK_DEGENERACY, diag.py:7,79-98)
+    check_degeneracy: bool = False
     # max heavy-atom count K of the static packed layout
     # (= packed_heavy_count(species))
     pack_heavy: Optional[int] = None
@@ -111,10 +116,10 @@ def scf_iterate(sys: System, M: torch.Tensor, w, p: Dict[str, torch.Tensor],
     K, n_st = packed
 
     def density(F):
-        if not cfg.use_sp2:
-            raise NotImplementedError("the eigh density path is not ported "
-                                      "yet; use SCFConfig(use_sp2=True)")
-        return sp2(sys, F, cfg.sp2_eps, pack_heavy=K, prepacked=True)
+        if cfg.use_sp2:
+            return sp2(sys, F, cfg.sp2_eps, pack_heavy=K, prepacked=True)
+        return sym_eig(sys, F, check_degeneracy=cfg.check_degeneracy,
+                       pack_heavy=K, prepacked=True)[1]
 
     def fock_of(P):
         return fock_packed_split(sys, P, M, w, p, K, n_st)

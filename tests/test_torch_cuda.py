@@ -1,6 +1,7 @@
-"""PyTorch port on an NVIDIA GPU: the CUDA SP2 kernel against its plain
-version and the exact density, and a short float32 XL-BOMD run through the
-kernel against the CPU run of the same inputs.
+"""PyTorch port on an NVIDIA GPU: the CUDA SP2 and Jacobi eigh kernels
+against their plain versions and the exact answers, and short float32
+XL-BOMD runs (SP2 and eigh densities) through the kernels against the CPU
+runs of the same inputs.
 
 These tests need the card and skip without one.  They import neither JAX
 nor the JAX package, so they run where only PyTorch is installed:
@@ -14,7 +15,7 @@ import torch
 import pyseqm_tpu_torch as pt
 from pyseqm_tpu_torch.drivers.md import MDConfig
 from pyseqm_tpu_torch.drivers.xlbomd import XLBOMD
-from pyseqm_tpu_torch.ops import sp2_kernel
+from pyseqm_tpu_torch.ops import eigh_kernel, sp2_kernel
 from pyseqm_tpu_torch.scf import SCFConfig
 from pyseqm_tpu_torch.utils.molecules import make_batch
 
@@ -67,11 +68,51 @@ def test_kernel_matches_plain_and_exact(cuda, B, n, nocc):
     assert ((iters > 0) & (iters <= sp2_kernel.MAX_ITER)).all()
 
 
-def test_xlbomd_f32_on_card_matches_cpu(cuda):
+@pytest.mark.parametrize("B,n", [(10240, 16), (7, 32), (7, 128),
+                                 (7, 24)])
+def test_eigh_kernel_matches_plain_and_exact(cuda, B, n):
+    rng = np.random.RandomState(n)
+    X = rng.randn(B, n, n)
+    # dense random as in test_kernels.py; at n = 128 its Gershgorin shift
+    # (~30 max|A|) puts f32 eigenvalues at the 5e-4 max|A| bound, so that
+    # size takes the diagonally dominant packed-F class of test_torch_sp2
+    X = 5.0 * X if n < 128 else 6.0 * X - 40.0 * np.eye(n)
+    A = (0.5 * (X + np.swapaxes(X, 1, 2))).astype(np.float32)
+    a = torch.from_numpy(A).to(cuda)
+    before = eigh_kernel.launches
+    e, v, resid, sweeps = eigh_kernel.eigh_jacobi(a, with_resid=True,
+                                                  return_sweeps=True)
+    torch.cuda.synchronize()
+    assert eigh_kernel.launches == before + 1
+    er, vr, _, sr = eigh_kernel.eigh_jacobi_reference(
+        a, with_resid=True, return_sweeps=True)
+    An = A.astype(np.float64)
+    nrm = np.abs(An).max()
+    en, vn = e.double().cpu().numpy(), v.double().cpu().numpy()
+    # the plain version repeats the kernel's operations (FP32 FMA column
+    # sums, explicitly rounded rotations): agreement to rounding
+    assert (e - er).abs().max().item() <= 1.0e-5 * nrm
+    occ = n // 2
+    pk = np.einsum('bik,bjk->bij', vn[..., :occ], vn[..., :occ])
+    vrn = vr.double().cpu().numpy()
+    pr = np.einsum('bik,bjk->bij', vrn[..., :occ], vrn[..., :occ])
+    assert np.abs(pk - pr).max() < 5.0e-5
+    assert torch.equal(sweeps, sr)
+    # the bounds of test_kernels.py against exact
+    e_ex = np.linalg.eigvalsh(An)
+    assert np.abs(en - e_ex).max() <= 5.0e-4 * nrm
+    assert np.abs(An @ vn - en[:, None, :] * vn).max() <= 5.0e-4 * nrm
+    assert np.abs(np.swapaxes(vn, 1, 2) @ vn - np.eye(n)).max() <= 1.0e-5
+    assert (resid <= eigh_kernel.OFF_TOL).all()
+
+
+@pytest.mark.parametrize("use_sp2", [True, False])
+def test_xlbomd_f32_on_card_matches_cpu(cuda, use_sp2):
     sp, co = make_batch(12, 8, jitter=0.02, seed=2)
     K = pt.packed_heavy_count(sp)
-    scf = SCFConfig(eps=1.0e-5, converger=(2,), use_sp2=True, sp2_eps=1.0e-4,
-                    pack_heavy=K)
+    scf = SCFConfig(eps=1.0e-5, converger=(2,), use_sp2=use_sp2,
+                    sp2_eps=1.0e-4, pack_heavy=K)
+    kernel = sp2_kernel if use_sp2 else eigh_kernel
     out = {}
     for dev in ("cpu", cuda):
         const, tables, cfg = pt.build("AM1", dtype=torch.float32, device=dev,
@@ -79,10 +120,10 @@ def test_xlbomd_f32_on_card_matches_cpu(cuda):
         md = XLBOMD(const, tables, cfg, MDConfig(timestep=0.4), k=5)
         s = md.initialize(sp, co, velocities=np.zeros_like(co),
                           initial_force=False)
-        n0 = sp2_kernel.launches
+        n0 = kernel.launches
         for _ in range(3):
             s, obs = md.step(sp, s)
-        out[str(dev)] = (s, obs, sp2_kernel.launches - n0)
+        out[str(dev)] = (s, obs, kernel.launches - n0)
     (sc, oc, lc), (sg, og, lg) = out["cpu"], out["cuda"]
     assert lc == 0 and lg == 3          # one kernel launch per XL step
     # f32 on two devices: different summation orders; the f32 bounds of
