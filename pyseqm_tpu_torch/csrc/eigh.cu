@@ -31,11 +31,13 @@
 // version repeats exactly these operations, so the two agree bit for bit
 // up to rare double-rounding ties in its emulation of the FMA.
 //
-// What bounds it on an H100: per sweep a molecule does (n - 1) rounds of
-// ~7 n^2 FP32 operations (two column dot products and the update), about
-// 27 kFLOP per sweep at n = 16 and 0.2 MFLOP at n = 32, against 2 n^2 * 4
-// bytes moved once: the FP32 rate bounds it, and at these sizes latency
-// does first (a round is a dependent chain of n FMAs plus two barriers).
+// What bounds it on an H100: per sweep a molecule needs (n - 1) rounds of
+// ~6 n^2 FP32 operations (per pair one gamma, two alphas and two column
+// updates; both members of a pair compute the same gamma and rotation
+// here, ~7 n^2 issued), about 25 kFLOP per sweep at n = 16 and 0.2 MFLOP
+// at n = 32, against 2 n^2 * 4 bytes moved once: the FP32 rate bounds it,
+// and at these sizes latency does first (a round is a dependent chain of
+// n FMAs plus two barriers).
 // The simple design keeps G in shared memory (2 n^2 floats: 2 KB at
 // n = 16, 128 KB at n = 128, requested as dynamic shared memory), one
 // thread per column with max(n, 32) threads, and a per-molecule exit.

@@ -246,15 +246,14 @@ def perturbation_vjp(e, v, e_bar, v_bar):
 
 
 class JacobiEigh(torch.autograd.Function):
-    """(e, v, resid) = solver(A, with_resid=True), differentiable in A
+    """(e, v, resid) = eigh_jacobi(A, with_resid=True), differentiable in A
     through the perturbation formulas on the outputs (the rule
     torch.linalg.eigh uses too, 1/(e_j - e_i) sensitivity included);
-    resid carries no gradient.  ``solver`` is ``eigh_jacobi`` on the
-    package's path."""
+    resid carries no gradient."""
 
     @staticmethod
-    def forward(ctx, A, solver):
-        e, v, resid = solver(A, with_resid=True)
+    def forward(ctx, A):
+        e, v, resid = eigh_jacobi(A, with_resid=True)
         ctx.save_for_backward(e, v)
         ctx.mark_non_differentiable(resid)
         return e, v, resid
@@ -262,17 +261,12 @@ class JacobiEigh(torch.autograd.Function):
     @staticmethod
     def backward(ctx, e_bar, v_bar, _resid_bar):
         e, v = ctx.saved_tensors
-        return perturbation_vjp(e, v, e_bar, v_bar), None
-
-
-def eigh_batched(A: torch.Tensor):
-    """Differentiable batched eigh backed by the Jacobi kernel: (e, v)."""
-    e, v, _ = JacobiEigh.apply(A, eigh_jacobi)
-    return e, v
+        return perturbation_vjp(e, v, e_bar, v_bar)
 
 
 def eigh_batched_checked(A: torch.Tensor):
-    """``eigh_batched`` plus the per-molecule residual: (e, v, resid).
-    resid > OFF_TOL flags a molecule whose sweeps stopped at MAX_SWEEPS
-    unconverged; callers rescue it (ops/density.py)."""
-    return JacobiEigh.apply(A, eigh_jacobi)
+    """Differentiable batched eigh backed by the Jacobi kernel, with the
+    per-molecule residual: (e, v, resid).  resid > OFF_TOL flags a
+    molecule whose sweeps stopped at MAX_SWEEPS unconverged; callers
+    rescue it (ops/density.py)."""
+    return JacobiEigh.apply(A)

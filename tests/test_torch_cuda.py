@@ -68,15 +68,16 @@ def test_kernel_matches_plain_and_exact(cuda, B, n, nocc):
     assert ((iters > 0) & (iters <= sp2_kernel.MAX_ITER)).all()
 
 
-@pytest.mark.parametrize("B,n", [(10240, 16), (7, 32), (7, 128),
-                                 (7, 24)])
-def test_eigh_kernel_matches_plain_and_exact(cuda, B, n):
+@pytest.mark.parametrize("B,n,kind", [(10240, 16, "dense"), (7, 32, "dense"),
+                                      (7, 128, "dense"), (7, 128, "fock"),
+                                      (7, 24, "dense")])
+def test_eigh_kernel_matches_plain_and_exact(cuda, B, n, kind):
     rng = np.random.RandomState(n)
     X = rng.randn(B, n, n)
-    # dense random as in test_kernels.py; at n = 128 its Gershgorin shift
-    # (~30 max|A|) puts f32 eigenvalues at the 5e-4 max|A| bound, so that
-    # size takes the diagonally dominant packed-F class of test_torch_sp2
-    X = 5.0 * X if n < 128 else 6.0 * X - 40.0 * np.eye(n)
+    # dense random as in test_kernels.py (at n = 128 its Gershgorin shift,
+    # ~30 max|A|, puts f32 eigenvalues close to the 5e-4 max|A| bound), or
+    # the diagonally dominant packed-F class of test_torch_sp2
+    X = 5.0 * X if kind == "dense" else 6.0 * X - 40.0 * np.eye(n)
     A = (0.5 * (X + np.swapaxes(X, 1, 2))).astype(np.float32)
     a = torch.from_numpy(A).to(cuda)
     before = eigh_kernel.launches

@@ -74,11 +74,12 @@ def test_reference_matches_interpret_kernel(case):
     nrm = np.abs(An).max()
     assert e.shape == (B, n) and v.shape == (B, n, n)
     # two f32 Jacobi runs whose column sums round differently: each sits
-    # ~2e-5 max|A| from the exact spectrum on these dense matrices (the
-    # Gershgorin shift is ~10 max|A|, and e = sigma - |g|), so they agree
-    # to that class, not to 1e-5 max|A|
-    np.testing.assert_allclose(e, np.asarray(ej, np.float64), rtol=0,
-                               atol=5e-5 * nrm)
+    # 1.0e-5 to 2.8e-5 max|A| from the exact spectrum on these dense
+    # matrices (the Gershgorin shift is ~10 max|A|, and e = sigma - |g|),
+    # so they agree to that class, not to 1e-5 max|A|.  Measured gap:
+    # 1.6e-5 (random), 2.1e-5 (resid), 8.3e-6 (degenerate) max|A|
+    gap = np.abs(e - np.asarray(ej, np.float64)).max() / nrm
+    assert gap <= 3.0e-5, f"plain vs interpret-mode kernel: {gap:.3e} max|A|"
     # the occupied projector is what the density uses (away from the
     # double eigenvalue at positions 4/5 of the degenerate case)
     for nocc in (3, n // 2):
@@ -171,10 +172,12 @@ def test_backward_matches_jax_perturbation_vjp(monkeypatch):
     # f64, the transpose of the same linear map
     np.testing.assert_allclose(_np(At), np.asarray(Aj), rtol=0, atol=1e-10)
 
-    # through the autograd.Function (float64 plain Jacobi as its solver)
+    # through the autograd.Function, its forward run by the float64 plain
+    # Jacobi (the wrapper itself takes float32 only)
+    monkeypatch.setattr(eigh_kernel, "eigh_jacobi", eigh_jacobi_reference)
     A = torch.tensor(_random_sym(2, 4, 8), dtype=torch.float64,
                      requires_grad=True)
-    ee, vv, res = JacobiEigh.apply(A, eigh_jacobi_reference)
+    ee, vv, res = JacobiEigh.apply(A)
     assert not res.requires_grad
     eb, vb = torch.tensor(rng.randn(2, 4)), torch.tensor(rng.randn(2, 4, 4))
     (g,) = torch.autograd.grad((ee * eb).sum() + (vv * vb).sum(), A)
@@ -187,8 +190,7 @@ def test_backward_matches_jax_perturbation_vjp(monkeypatch):
     # function symmetrises its input
     monkeypatch.setattr(eigh_kernel, "OFF_TOL", 1.0e-28)
     assert torch.autograd.gradcheck(
-        lambda X: JacobiEigh.apply(0.5 * (X + X.transpose(1, 2)),
-                                   eigh_jacobi_reference)[:2],
+        lambda X: JacobiEigh.apply(0.5 * (X + X.transpose(1, 2)))[:2],
         (A,), eps=1e-6, atol=1e-6)
 
 
@@ -349,6 +351,35 @@ def test_default_scfconfig_energy_runs():
     out = pt.energy(const, tables, cfg, sp, torch.tensor(co))
     assert torch.isfinite(out.Hf).all() and not out.notconverged.any()
     assert out.e is None and out.charge is None
+
+
+def test_scf_check_degeneracy_reaches_the_solver(monkeypatch):
+    """SCFConfig(check_degeneracy=True) reaches every density solve of the
+    packed SCF; these closed-shell molecules have a gap at the Fermi level,
+    so the fractional occupations are the integer ones and the energy is
+    that of the default."""
+    from pyseqm_tpu_torch import scf as tscf
+    sp, co = make_batch(4, 8, jitter=0.02, seed=3)
+    K = pt.packed_heavy_count(sp)
+    seen = []
+
+    def tapped(*args, **kwargs):
+        seen.append(kwargs.get("check_degeneracy"))
+        return tdens.sym_eig(*args, **kwargs)
+
+    monkeypatch.setattr(tscf, "sym_eig", tapped)
+    Hf = {}
+    for check in (False, True):
+        const, tables, cfg = pt.build(
+            "AM1", dtype=torch.float64, device="cpu",
+            scf=SCFConfig(eps=1.0e-10, converger=(2,), pack_heavy=K,
+                          check_degeneracy=check))
+        n0 = len(seen)
+        out = pt.energy(const, tables, cfg, sp, torch.tensor(co))
+        assert not out.notconverged.any()
+        assert len(seen) > n0 and all(c is check for c in seen[n0:])
+        Hf[check] = _np(out.Hf)
+    np.testing.assert_allclose(Hf[True], Hf[False], rtol=0, atol=1e-9)
 
 
 def test_xlbomd_eigh_trajectory_matches_jax():
