@@ -8,10 +8,14 @@ line is printed):
 
 1. card and software: nvidia-smi name and power limit, torch/CUDA/nvcc
    versions; TF32 off;
-2. build: compile every CUDA kernel (csrc/sp2.cu, csrc/eigh.cu) from the
-   sources in the checkout, one nvcc per source, started together;
+2. build: compile every CUDA kernel (csrc/sp2.cu, csrc/eigh.cu,
+   csrc/wapply.cu) from the sources in the checkout, one nvcc per source,
+   started together, and print ptxas's registers and spills for K3;
 3. K1 (SP2) against its plain version and the exact density (f64 eigh) on
    the card, at the main path's shape and at ragged/large sizes;
+13. K3 (the fused two-electron apply, forward and backward) against its
+    plain version at every path's cell count, a ragged count and an
+    expanded X, three perms, float32 and float64;
 4. the XL-SP2 path at full width: 10,240 molecules x 8 atoms, AM1 float32,
    one bootstrap SCF (DIIS, SP2) then XL-BOMD (k=5, 0.4 fs) through the
    entry points build -> XLBOMD.initialize -> XLBOMD.step: steps/s, kernel
@@ -37,8 +41,23 @@ line is printed):
 12. K2's time on the eigh path's own inputs (n = 16 and 32): the kernel
     launch alone against its bound and its plain version, the whole
     wrapper against torch.linalg.eigh;
-13. a JSON line of every kernel with its launches, error and times against
+14. the default layout at full width (no pack_heavy: flat pairs, the
+    block-grid Fock, K2 at n = 32 on the orbital permutation):
+    molecules/s over 3 chained energy calls, float32 against float64 on
+    the first 256 molecules, and against the packed layout's Hf;
+15. the 884-atom nanostar as `bench.py --config nanostar` runs it (the
+    class-segmented grid, K3 on the 294^2 heavy sub-grid, SP2 at n = 1792
+    with Gelfand bounds): one energy, then 25 chained packed force_xl
+    steps: steps/s, SP2 iterations, peak memory;
+16. the nanostar on the dense grid with the default layout (hcore_dense,
+    K3 on 884^2 cells, eigh at pack_orbitals = 1792): one force call, and
+    both nanostar runs held to each other and to a float64 dense run;
+17. K3's time on each path's own inputs (launch alone, forward and
+    backward) against its bound and its plain version;
+18. a JSON line of every kernel with its launches, error and times against
     its bound; then the card; the elapsed time; then the result line.
+
+Every phase prints its elapsed time.
 
 Imports torch, numpy and pyseqm_tpu_torch only.  Exits non-zero without a
 CUDA device, or when the package is not next to this script.
@@ -75,6 +94,32 @@ TOL_HF, TOL_F = 1.5e-4, 1.0e-3
 # the plain version, which repeats the kernel's operations
 TOL_EIG_EXACT, TOL_EIG_PLAIN, TOL_ORTH = 5.0e-4, 1.0e-5, 1.0e-5
 TOL_E_ORB, TOL_CHARGE = 2.0e-3, 1.0e-4     # eV; charge invariant
+# K3 against its plain version: the bounds of the TPU kernel's own check
+# (tools/wapply_pallas.py check(): 3e-6 of the largest value, cotangents
+# at least 3e-6), and rounding in float64
+TOL_K3 = {torch.float32: 3.0e-6, torch.float64: 1.0e-12}
+K3_PERMS = ((1, 2, 3, 4), (3, 4, 1, 2), (1, 3, 2, 4))
+# cells of one apply on each path, and a count that is no multiple of the
+# kernels' blocks
+K3_CELLS = {"headline packed XX": NMOL * 2 * 2, "nanostar packed XX": 294 ** 2,
+            "flat default": NMOL * 28, "nanostar dense grid": 884 ** 2,
+            "ragged": 1001}
+# per cell: floats read and written, and floating-point operations
+# (csrc/wapply.cu: rotations 240, table 144 forward; 2 rotations in, the
+# table pass 432, dX 120, dU 468 backward)
+K3_IO = {"fwd": (47, 16, 384), "bwd": (63, 47, 1260)}
+NANO_CARBONS, NANO_STEPS = 294, 25
+# The nanostar runs against the float64 dense run.  Hf: the float32 error
+# grows with the molecule; both configurations run on the CPU against
+# float64 on smaller alkanes read |dHf| 5.4e-4 / 7.7e-4 eV at 65 atoms and
+# 2.4e-3 / 2.4e-4 eV at 182 atoms (dense eigh / packed SP2), which is
+# ~1.2e-2 eV at 884 atoms if the error grows linearly with the atoms; the
+# packed run stops on |dE| < 1e-3 eV (SCF eps) and SP2's trace criterion
+# at the float32 floor 3e-4.  Bound 0.05 eV, 4x that.  Forces: 1.2e-4 /
+# 1.4e-4 eV/A at both sizes, independent of size (a local quantity);
+# twice the headline bound (1e-3) for the packed run's 10x looser SCF eps.
+# The two float32 runs are held to each other at the same bounds.
+TOL_HF_NANO, TOL_F_NANO = 0.05, 2.0e-3
 
 
 class PhaseError(RuntimeError):
@@ -143,18 +188,26 @@ def phase_card():
 
 
 def phase_build():
-    from pyseqm_tpu_torch.ops import cuda_build, eigh_kernel, sp2_kernel
-    kernels = (sp2_kernel, eigh_kernel)
+    from pyseqm_tpu_torch.ops import (cuda_build, eigh_kernel, sp2_kernel,
+                                      wapply_kernel)
+    kernels = (sp2_kernel, eigh_kernel, wapply_kernel)
     shutil.rmtree(cuda_build.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
     # one nvcc per source, all started together
     with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
         list(pool.map(cuda_build.build, [k.SOURCE for k in kernels]))
-    for k in kernels:
-        k._load()
+    sp2_kernel._load()
+    eigh_kernel._load()
+    wapply_kernel._load_all()
     print(f"[2 build] {', '.join(k.SOURCE + '.cu' for k in kernels)} -> "
           f"{cuda_build.BUILD_DIR} in {time.perf_counter() - t0:.2f} s",
           flush=True)
+    report = [ln.strip() for ln in
+              cuda_build.ptxas_report(wapply_kernel.SOURCE).splitlines()
+              if "Compiling entry" in ln or "Used" in ln or "spill" in ln
+              or "stack frame" in ln]
+    print("[2 ptxas wapply.cu] " + " | ".join(report), flush=True)
+    return report
 
 
 def gap_case(B, n, nocc, seed):
@@ -221,13 +274,16 @@ def phase_kernel_parity():
     return worst
 
 
-def headline_setup(nmol, dtype, scf_eps, sp2_eps, use_sp2=True):
+def headline_setup(nmol, dtype, scf_eps, sp2_eps, use_sp2=True, pack=True):
+    """The headline batch (first nmol molecules) and its configuration:
+    the static packed layout (pack_heavy), or with ``pack=False`` the
+    default layout (flat pair list, full 4A electronic state)."""
     import pyseqm_tpu_torch as pt
     from pyseqm_tpu_torch.scf import SCFConfig
     from pyseqm_tpu_torch.utils.molecules import make_batch
     sp, co = make_batch(NMOL, MOLSIZE, jitter=0.02)
     sp, co = sp[:nmol], co[:nmol]
-    K = pt.packed_heavy_count(sp)
+    K = pt.packed_heavy_count(sp) if pack else None
     const, tables, cfg = pt.build(
         "AM1", dtype=dtype, device=DEV,
         scf=SCFConfig(eps=scf_eps, converger=(2,), use_sp2=use_sp2,
@@ -272,13 +328,13 @@ def step_breakdown(md, species, state):
     sys_ = make_system(const, species, coords, None, cfg.pair_outer_cutoff,
                        heavy_count=K)
     p = _atom_parameters(tables, cfg.method, sys_, None, coords)
-    M, w = _integral_stack(const, sys_, p, cfg, K, n_st)
+    M, w, _ = _integral_stack(const, sys_, p, cfg, packed_m=n_st)
     ev[2].record()
     F = fock_packed_split(sys_, P, M, w, p, K, n_st)
     ev[3].record()
     with torch.no_grad():
-        D = sp2(sys_, F.detach(), cfg.scf.sp2_eps, pack_heavy=K,
-                prepacked=True)
+        D = sp2(sys_, F.detach(), cfg.scf.sp2_eps, cfg.scf.sp2_tight_bounds,
+                pack_heavy=K, prepacked=True)
     ev[4].record()
     EnucAB, mask = _nuclear_term(const, sys_, w, cfg, p)
     Eiso = elec_energy_isolated_atom(const, sys_.species, p)
@@ -305,6 +361,7 @@ def phase_main_path(card):
     md = XLBOMD(const, tables, cfg, MDConfig(timestep=0.4), k=5)
 
     sp2_kernel.launches = 0             # counts over the whole main path
+    k3_reset()
     sync()
     t0 = time.perf_counter()
     state = md.initialize(species, coords,
@@ -323,6 +380,7 @@ def phase_main_path(card):
     e_ref = (obs.Ek + obs.Epot).double()
     sync()
     n0 = sp2_kernel.launches
+    k0 = k3_counts()
     etots = []
     t0 = time.perf_counter()
     for _ in range(NSTEPS):
@@ -331,7 +389,9 @@ def phase_main_path(card):
     sync()
     t_steps = time.perf_counter() - t0
     n_steps_launch = sp2_kernel.launches - n0
+    k3_step = [(b - a) / NSTEPS for a, b in zip(k0, k3_counts())]
     main_launches = sp2_kernel.launches
+    k3_main = k3_counts()
     per_mol = (torch.stack(etots).double() - e_ref[None]).abs().amax(dim=0)
     drift = per_mol.max().item()
     finite = bool(torch.isfinite(state.coordinates).all()
@@ -340,19 +400,23 @@ def phase_main_path(card):
     print(f"[4 xlbomd] {NMOL} x {MOLSIZE} AM1 f32 k=5 dt=0.4: "
           f"{sps:.3f} steps/s ({1e3 * t_steps / NSTEPS:.3f} ms/step) on "
           f"{card} | K1 launches over {NSTEPS} steps {n_steps_launch} | "
+          f"K3 launches per step fwd {k3_step[0]:g} bwd {k3_step[1]:g} | "
           f"|Etot - Etot(warm-up end)| per molecule eV {fmt(per_mol)} | "
           f"finite {finite}", flush=True)
     check(finite, "non-finite MD state")
     check(n_steps_launch == NSTEPS, f"K1 launched {n_steps_launch} times "
           f"in {NSTEPS} steps")
     check(drift <= TOL_DRIFT, f"energy drift {drift} > {TOL_DRIFT} eV")
+    check(k3_step == [2.0, 2.0], f"K3 launches per XL step {k3_step}, "
+          "expected 2 forward (Coulomb, exchange) and 2 backward")
 
     bd = [step_breakdown(md, species, state) for _ in range(3)]
     parts = {k: float(np.median([b[k] for b in bd])) for k in bd[0]}
     print("[4 breakdown ms] " + " ".join(f"{k} {v:.3f}" for k, v in
                                          parts.items())
           + f" | sum {sum(parts.values()):.3f}", flush=True)
-    return md, species, state, main_launches, sps, parts, per_mol
+    return (md, species, state, main_launches, sps, parts, per_mol, k3_main,
+            k3_step)
 
 
 def xl_run(nmol, dtype, precise, steps):
@@ -429,7 +493,7 @@ def main_path_sp2_input(md, species, state):
                            heavy_count=K)
         p = _atom_parameters(md.tables, cfg.method, sys_, None,
                              state.coordinates)
-        M, w = _integral_stack(md.const, sys_, p, cfg, K, n_st)
+        M, w, _ = _integral_stack(md.const, sys_, p, cfg, packed_m=n_st)
         F = fock_packed_split(sys_, state.P, M, w, p, K, n_st)
         a0, nocc, _ = sp2_input(sys_, F, K, prepacked=True)
     return a0, nocc, cfg.scf.sp2_eps
@@ -648,6 +712,7 @@ def phase_scf_eigh(card):
     sync()
     eigh_kernel.launches = 0
     density.rescued = 0
+    k3_reset()
     solves, nc = [], 0
     with Tap(scf, "sym_eig") as tap, \
             Tap(density, "eigh_batched_checked") as k2_in:
@@ -663,6 +728,7 @@ def phase_scf_eigh(card):
         sync()
         dt = time.perf_counter() - t0
     launches, rescued = eigh_kernel.launches, density.rescued
+    k3 = k3_counts()
     mps = SCF_REPEATS * NMOL / dt
     polish = 8                           # SCFConfig.polish_iters auto, f32
     print(f"[9 scf-eigh] {NMOL} x {MOLSIZE} AM1 f32 eps 1e-5: {mps:.1f} "
@@ -677,7 +743,7 @@ def phase_scf_eigh(card):
           f"{sum(solves)} density solves")
     return {"molecules_per_s": mps, "s_per_call": dt / SCF_REPEATS,
             "iterations": [k - polish for k in solves], "rescued": rescued,
-            "launches": launches}, k2_in.last[16]
+            "launches": launches, "k3_launches": k3}, k2_in.last[16]
 
 
 def phase_eig_outputs():
@@ -689,10 +755,12 @@ def phase_eig_outputs():
         NMOL, torch.float32, 1.0e-5, 1.0e-4, use_sp2=False)
     cfg = dataclasses.replace(cfg, eig=True)
     eigh_kernel.launches = 0
+    k3_reset()
     with Tap(density, "eigh_batched_checked") as k2_in:
         f, out = pt.force(const, tables, cfg, species, coords)
         sync()
     launches = eigh_kernel.launches
+    k3 = k3_counts()
     A = species.shape[1]
     check(tuple(out.e.shape) == (NMOL, 4 * A)
           and tuple(out.charge.shape) == (NMOL, 4 * A, A),
@@ -728,7 +796,7 @@ def phase_eig_outputs():
     check(df.max().item() <= TOL_F, f"eig f32 force error {df.max().item()}")
     check(de.max().item() <= TOL_E_ORB,
           f"f32 orbital energy error {de.max().item()}")
-    return launches, k2_in.last[4 * A], {
+    return launches, k3, k2_in.last[4 * A], {
         "charge_invariant_max": d_q.max().item(),
         "dHf_max": dh.max().item(), "dF_max": df.max().item(),
         "de_orb_max": de.max().item()}
@@ -742,6 +810,7 @@ def phase_xl_eigh(card):
         NMOL, torch.float32, 1.0e-5, 1.0e-4, use_sp2=False)
     md = XLBOMD(const, tables, cfg, MDConfig(timestep=0.4), k=5)
     eigh_kernel.launches = 0
+    k3_reset()
     state = md.initialize(species, coords,
                           velocities=torch.zeros_like(coords),
                           initial_force=False)
@@ -759,6 +828,7 @@ def phase_xl_eigh(card):
     dt = time.perf_counter() - t0
     n_steps = eigh_kernel.launches - n0
     launches = eigh_kernel.launches
+    k3 = k3_counts()
     per_mol = (torch.stack(etots).double() - e_ref[None]).abs().amax(dim=0)
     finite = bool(torch.isfinite(state.coordinates).all()
                   and torch.isfinite(torch.stack(etots)).all())
@@ -778,7 +848,8 @@ def phase_xl_eigh(card):
           f"device kernel time {dev_ms:.1f} ms against {1e3 / sps:.1f} ms "
           f"per timed step (device busy share {dev_ms * sps / 1e3:.3f})",
           flush=True)
-    return launches, {"steps_per_s": sps, "drift_max": per_mol.max().item(),
+    return launches, k3, {"steps_per_s": sps,
+                          "drift_max": per_mol.max().item(),
                       "launches_per_step": n_launch,
                       "device_ms_per_step": dev_ms}
 
@@ -834,6 +905,405 @@ def k2_timing(A, tag):
             "mean_sweeps": sw.mean().item(), "max_abs_err": err}
 
 
+def k3_counts():
+    from pyseqm_tpu_torch.ops import wapply_kernel
+    return wapply_kernel.launches_fwd, wapply_kernel.launches_bwd
+
+
+def k3_reset():
+    from pyseqm_tpu_torch.ops import wapply_kernel
+    wapply_kernel.launches_fwd = wapply_kernel.launches_bwd = 0
+
+
+class K3Tap:
+    """Keeps the operands of the last K3 apply of each perm made while
+    active (a wrapper around tetci's w_apply; detached)."""
+
+    def __init__(self):
+        self.last = {}
+
+    def __enter__(self):
+        from pyseqm_tpu_torch.ops import tetci
+        self.orig = tetci.w_apply
+
+        def wrapped(ri, U, X, perm):
+            self.last[tuple(perm)] = (ri.detach(), U.detach(), X.detach())
+            return self.orig(ri, U, X, perm)
+        tetci.w_apply = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from pyseqm_tpu_torch.ops import tetci
+        tetci.w_apply = self.orig
+
+
+def k3_case(C, dtype, seed):
+    """K3 operands from a seed: 22 integrals, a frame from a random bond
+    direction (frame_matrix, so U has the structure the kernel assumes),
+    a density block and an output cotangent per cell."""
+    from pyseqm_tpu_torch.ops.tetci import frame_matrix
+    g = torch.Generator(device=DEV).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=DEV,
+                           dtype=torch.float64)
+    x = rnd(C, 3)
+    U = frame_matrix(x / x.norm(dim=-1, keepdim=True))
+    return [t.to(dtype) for t in (5.0 * rnd(C, 22), U, rnd(C, 4, 4),
+                                  rnd(C, 4, 4))]
+
+
+def k3_errors(ri, U, X, Yb, perm):
+    """K3 (through w_apply and its autograd.Function) against the plain
+    version and autograd through it: the forward's error relative to its
+    largest value, each cotangent's relative to max(its largest value, 1)
+    (dU on the 3x3 block the kernel returns), the largest absolute error,
+    and whether dU is zero outside the block."""
+    from pyseqm_tpu_torch.ops import wapply_kernel as wk
+
+    def run(fn):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (ri, U, X)]
+        y = fn(*leaves, perm)
+        return (y,) + torch.autograd.grad(y, leaves, Yb)
+    got, ref = run(wk.w_apply), run(wk.w_apply_reference)
+    sync()
+    block = bool(not got[2][..., 0, :].any() and not got[2][..., 1:, 0].any())
+    pairs = [(got[0], ref[0]), (got[1], ref[1]),
+             (got[2][..., 1:, 1:], ref[2][..., 1:, 1:]), (got[3], ref[3])]
+    rel, absmax = [], 0.0
+    for k, (a, b) in enumerate(pairs):
+        d = (a - b).abs().max().item()
+        scale = b.abs().max().item()
+        rel.append(d / (scale if k == 0 else max(scale, 1.0)))
+        absmax = max(absmax, d)
+    return rel, absmax, block
+
+
+def phase_k3_parity():
+    worst = {torch.float32: 0.0, torch.float64: 0.0}
+    for dtype in (torch.float32, torch.float64):
+        for seed, (tag, C) in enumerate(K3_CELLS.items()):
+            ri, U, X, Yb = k3_case(C, dtype, seed)
+            lines = []
+            for perm in K3_PERMS:
+                rel, absmax, block = k3_errors(ri, U, X, Yb, perm)
+                lines.append(f"{perm}: " + " ".join(
+                    f"{n} {e:.1e}" for n, e in zip(("y", "dri", "dU", "dX"),
+                                                  rel)))
+                check(max(rel) <= TOL_K3[dtype] and block,
+                      f"K3 {tag} {dtype} {perm}: relative errors {rel}, "
+                      f"dU block only {block}")
+                worst[dtype] = max(worst[dtype], absmax)
+            print(f"[13 K3 {tag} C={C} {str(dtype)[6:]}] " + " | ".join(lines),
+                  flush=True)
+            del ri, U, X, Yb
+        # the Coulomb apply of the packed Fock: X broadcast over the row atom
+        ri, U, _, Yb = k3_case(NMOL * 4, dtype, 99)
+        shape = (NMOL, 2, 2)
+        ri, U, Yb = ri.reshape(shape + (22,)), U.reshape(shape + (4, 4)), \
+            Yb.reshape(shape + (4, 4))
+        Xb = k3_case(NMOL * 2, dtype, 98)[2].reshape(NMOL, 1, 2, 4, 4)
+        rel, absmax, block = k3_errors(ri, U, Xb, Yb, (1, 2, 3, 4))
+        print(f"[13 K3 expanded X ({NMOL}, 1, 2) -> ({NMOL}, 2, 2) "
+              f"{str(dtype)[6:]}] y {rel[0]:.1e} dri {rel[1]:.1e} dU "
+              f"{rel[2]:.1e} dX {rel[3]:.1e}", flush=True)
+        check(max(rel) <= TOL_K3[dtype] and block,
+              f"K3 expanded X {dtype}: {rel}")
+    return worst[torch.float32]
+
+
+def phase_flat_default(card):
+    """The default layout (no pack_heavy) at full width: flat hcore,
+    fock(WPack) with three K3 applies per build, sym_eig on the orbital
+    permutation (K2 at n = 32); 3 chained energy calls as phase 9."""
+    import pyseqm_tpu_torch as pt
+    from pyseqm_tpu_torch import scf
+    from pyseqm_tpu_torch.ops import eigh_kernel
+    const, tables, cfg, species, coords = headline_setup(
+        NMOL, torch.float32, 1.0e-5, 1.0e-4, use_sp2=False, pack=False)
+    out = pt.energy(const, tables, cfg, species, coords)     # warm-up
+    check(type(out.w).__name__ == "WPack", f"default layout ran on "
+          f"{type(out.w).__name__}, not the flat pair list")
+    hf_first = out.Hf
+    sync()
+    eigh_kernel.launches = 0
+    k3_reset()
+    solves, nc = [], 0
+    with Tap(scf, "sym_eig") as tap, K3Tap() as k3_in:
+        c = coords
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(SCF_REPEATS):
+            n0 = tap.calls
+            out = pt.energy(const, tables, cfg, species, c)
+            c = c + 1.0e-7 * out.Hf[:, None, None]
+            solves.append(tap.calls - n0)
+            nc += int(out.notconverged.sum().item())
+        sync()
+        dt = time.perf_counter() - t0
+    launches, k3 = eigh_kernel.launches, k3_counts()
+    mps = SCF_REPEATS * NMOL / dt
+    polish = 8
+    print(f"[14 flat default] {NMOL} x {MOLSIZE} AM1 f32 eps 1e-5, no "
+          f"pack_heavy: {mps:.1f} molecules/s ({dt / SCF_REPEATS:.3f} s per "
+          f"call) on {card} | SCF iterations per call "
+          f"{[k - polish for k in solves]} + {polish} polish | notconverged "
+          f"{nc} | K2 launches {launches} for {sum(solves)} density solves "
+          f"| K3 launches fwd {k3[0]} bwd {k3[1]}", flush=True)
+    check(bool(torch.isfinite(out.Hf).all()), "non-finite flat Hf")
+    check(nc == 0, f"{nc} flat-layout molecules not converged")
+    check(launches == sum(solves), f"K2 launched {launches} times for "
+          f"{sum(solves)} density solves")
+    check(k3[0] > 0, "K3 was not launched on the flat default path")
+
+    m = 256
+    runs = {}
+    for dtype, eps in ((torch.float32, 1.0e-5), (torch.float64, 1.0e-10)):
+        c_, t_, cfg_, sp_, co_ = headline_setup(m, dtype, eps, 1.0e-7,
+                                                use_sp2=False, pack=False)
+        f, o = pt.force(c_, t_, cfg_, sp_, co_)
+        runs[dtype] = (f.double(), o.Hf.double())
+    (f32, h32), (f64, h64) = runs[torch.float32], runs[torch.float64]
+    dh = (h32 - h64).abs()
+    df = (f32 - f64).abs().amax(dim=(1, 2))
+    c_, t_, cfg_, sp_, co_ = headline_setup(m, torch.float32, 1.0e-5, 1.0e-4,
+                                            use_sp2=False)
+    dpk = (pt.energy(c_, t_, cfg_, sp_, co_).Hf.double()
+           - hf_first[:m].double()).abs()
+    print(f"[14 flat default f32 vs f64, {m} molecules] |dHf| eV {fmt(dh)} "
+          f"| |dF| eV/A {fmt(df)} | |Hf(flat) - Hf(packed)| f32 eV "
+          f"{fmt(dpk)}", flush=True)
+    check(dh.max().item() <= TOL_HF, f"flat f32 Hf error {dh.max().item()}")
+    check(df.max().item() <= TOL_F, f"flat f32 force error {df.max().item()}")
+    return {"molecules_per_s": mps, "s_per_call": dt / SCF_REPEATS,
+            "iterations": [k - polish for k in solves], "k2_launches":
+            launches, "k3_launches": k3, "dHf_max": dh.max().item(),
+            "dF_max": df.max().item(), "dHf_vs_packed_max":
+            dpk.max().item()}, k3_in.last
+
+
+def nanostar_setup(dtype, packed):
+    """make_alkane(294), 884 atoms, AM1: the configuration of `bench.py
+    --config nanostar` (packed) or the default layout with only
+    pack_orbitals (float64: eps 1e-8)."""
+    import pyseqm_tpu_torch as pt
+    from pyseqm_tpu_torch.scf import SCFConfig
+    from pyseqm_tpu_torch.utils.molecules import make_alkane
+    z, x = make_alkane(NANO_CARBONS)
+    sp = z[None]
+    n_orb = pt.packed_orbital_size(sp)
+    if packed:
+        scf_cfg = SCFConfig(eps=1.0e-3, converger=(2,), use_sp2=True,
+                            sp2_eps=1.0e-4, sp2_tight_bounds=True,
+                            max_iter=400, pack_orbitals=n_orb,
+                            pack_heavy=pt.packed_heavy_count(sp))
+    elif dtype == torch.float32:
+        scf_cfg = SCFConfig(pack_orbitals=n_orb)
+    else:
+        scf_cfg = SCFConfig(eps=1.0e-8, converger=(2,), pack_orbitals=n_orb)
+    const, tables, cfg = pt.build("AM1", dtype=dtype, device=DEV,
+                                  scf=scf_cfg)
+    species = torch.tensor(sp, dtype=torch.long, device=DEV)
+    coords = torch.tensor(x[None].astype(np.float32), dtype=dtype,
+                          device=DEV)
+    return const, tables, cfg, species, coords
+
+
+def phase_nanostar_packed(card):
+    import pyseqm_tpu_torch as pt
+    from pyseqm_tpu_torch import scf
+    from pyseqm_tpu_torch.models.energy import _packed_layout
+    from pyseqm_tpu_torch.models.xlbomd import force_xl
+    from pyseqm_tpu_torch.ops import density
+    from pyseqm_tpu_torch.ops.density import static_pack_mat
+    const, tables, cfg, species, coords = nanostar_setup(torch.float32, True)
+    K, n_st = _packed_layout(cfg, species.shape[1])
+    torch.cuda.reset_peak_memory_stats()
+    k3_reset()
+    density.sp2_iterations = 0
+    with Tap(scf, "sp2") as tap, K3Tap() as k3_in:
+        sync()
+        t0 = time.perf_counter()
+        out = pt.energy(const, tables, cfg, species, coords)
+        sync()
+        t_scf = time.perf_counter() - t0
+        scf_it, solves = density.sp2_iterations, tap.calls
+        hf_scf, nc = out.Hf.detach(), bool(out.notconverged.any())
+        P0 = static_pack_mat(out.P.detach(), K, n_st)
+        del out
+        # the first force step at the SCF geometry (cross-checked in 16)
+        f0, hf0, _ = force_xl(const, tables, cfg, species, coords, P0,
+                              packed_io=True)
+        density.sp2_iterations = 0
+        c = coords
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(NANO_STEPS):
+            frc, hf, D = force_xl(const, tables, cfg, species, c, P0,
+                                  packed_io=True)
+            c = c + 1.0e-7 * frc
+        sync()
+        dt = time.perf_counter() - t0
+    sps = NANO_STEPS / dt
+    it_step = density.sp2_iterations / NANO_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    k3 = k3_counts()
+    finite = bool(torch.isfinite(c).all() and torch.isfinite(hf).all())
+    print(f"[15 nanostar packed] C{NANO_CARBONS}H{2 * NANO_CARBONS + 2} "
+          f"({species.shape[1]} atoms) AM1 f32, K={K} n_st={n_st}: SCF "
+          f"{t_scf:.2f} s, "
+          f"{solves} SP2 solves, {scf_it} SP2 iterations, notconverged {nc} "
+          f"| {NANO_STEPS} chained force_xl: {sps:.3f} steps/s "
+          f"({1e3 / sps:.1f} ms/step) on {card}, {it_step:.1f} SP2 "
+          f"iterations per step | peak memory {peak:.2f} GiB | K3 launches "
+          f"fwd {k3[0]} bwd {k3[1]} | finite {finite}", flush=True)
+    check(finite and not nc, "nanostar packed run not finite or converged")
+    check(k3[0] > 0 and k3[1] > 0, "K3 not launched on the nanostar packed "
+          "path (forward and backward)")
+    return ({"steps_per_s": sps, "scf_s": t_scf, "scf_sp2_iterations": scf_it,
+             "sp2_iterations_per_step": it_step, "peak_gib": peak,
+             "k3_launches": k3},
+            (hf_scf.double(), f0.double(), hf0.double()), k3_in.last)
+
+
+def phase_nanostar_dense(card, packed_ref):
+    import pyseqm_tpu_torch as pt
+    from pyseqm_tpu_torch import scf
+    polish = 8
+    const, tables, cfg, species, coords = nanostar_setup(torch.float32,
+                                                         False)
+    torch.cuda.reset_peak_memory_stats()
+    k3_reset()
+    with Tap(scf, "sym_eig") as tap, K3Tap() as k3_in:
+        sync()
+        t0 = time.perf_counter()
+        f, out = pt.force(const, tables, cfg, species, coords)
+        sync()
+        dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    k3 = k3_counts()
+    layout = type(out.w).__name__
+    nc = bool(out.notconverged.any())
+    print(f"[16 nanostar dense] {species.shape[1]} atoms AM1 f32, default "
+          f"layout ({layout}, pack_orbitals {cfg.scf.pack_orbitals}): one "
+          f"force call {dt:.2f} s on "
+          f"{card} | SCF iterations {tap.calls - polish} + {polish} polish, "
+          f"notconverged {nc} | peak memory {peak:.2f} GiB | K3 launches fwd "
+          f"{k3[0]} bwd {k3[1]}", flush=True)
+    check(layout == "WPackGrid", f"the nanostar default ran on {layout}")
+    check(not nc and bool(torch.isfinite(f).all()),
+          "nanostar dense run not finite or converged")
+    check(k3[0] > 0 and k3[1] > 0, "K3 not launched on the nanostar dense "
+          "path (forward and backward)")
+    f32d, h32d = f.double(), out.Hf.double()
+    del f, out
+    torch.cuda.empty_cache()
+
+    c64 = nanostar_setup(torch.float64, False)
+    t0 = time.perf_counter()
+    f64, o64 = pt.force(*c64)
+    sync()
+    t64 = time.perf_counter() - t0
+    h64 = o64.Hf.double()
+    hpk, fpk, hpk_xl = packed_ref
+    dh = {"packed-f64": (hpk - h64).abs().item(),
+          "packed XL-f64": (hpk_xl - h64).abs().item(),
+          "dense-f64": (h32d - h64).abs().item(),
+          "packed-dense": (hpk - h32d).abs().item()}
+    df = {"packed XL-f64": (fpk - f64).abs().max().item(),
+          "dense-f64": (f32d - f64).abs().max().item(),
+          "packed XL-dense": (fpk - f32d).abs().max().item()}
+    print(f"[16 nanostar cross-check] f64 dense run {t64:.2f} s, Hf "
+          f"{h64.item():.6f} eV | |dHf| eV " + " ".join(
+              f"{k} {v:.2e}" for k, v in dh.items()) + " | max |dF| eV/A "
+          + " ".join(f"{k} {v:.2e}" for k, v in df.items()), flush=True)
+    check(max(dh.values()) <= TOL_HF_NANO, f"nanostar Hf cross-check {dh}")
+    check(max(df.values()) <= TOL_F_NANO, f"nanostar force cross-check {df}")
+    return {"force_s": dt, "scf_iterations": tap.calls - polish,
+            "peak_gib": peak, "k3_launches": k3, "f64_force_s": t64,
+            "dHf": dh, "dF": df}, k3_in.last
+
+
+def k3_timing(ri, U, X, perm, tag):
+    """K3 on one path's own operands (the exchange apply of its Fock
+    build): each kernel launch alone (median of 20, CUDA events) against
+    its bound, the plain version's forward and autograd backward as the
+    reference point (no PyTorch call computes this function)."""
+    from pyseqm_tpu_torch.ops import wapply_kernel as wk
+    batch = torch.broadcast_shapes(ri.shape[:-1], U.shape[:-2],
+                                   X.shape[:-2])
+    C = int(np.prod(batch))
+    ri = ri.expand(batch + (22,)).reshape(C, 22).contiguous()
+    U = U.expand(batch + (4, 4)).reshape(C, 4, 4).contiguous()
+    X = X.expand(batch + (4, 4)).reshape(C, 4, 4).contiguous()
+    g = torch.Generator(device=DEV).manual_seed(5)
+    Yb = torch.randn(C, 4, 4, generator=g, device=DEV, dtype=X.dtype)
+    rel, absmax, _ = k3_errors(ri, U, X, Yb, perm)
+    check(max(rel) <= TOL_K3[X.dtype], f"K3 vs plain on the {tag} input: "
+          f"{rel}")
+    need = (True, True, True)
+    ms = {"fwd": median_ms(lambda: wk._launch_fwd(ri, U, X, perm), 20),
+          "bwd": median_ms(lambda: wk._launch_bwd(ri, U, X, Yb, perm, need),
+                           20)}
+    leaves = [t.clone().requires_grad_(True) for t in (ri, U, X)]
+    yr = wk.w_apply_reference(*leaves, perm)
+    plain = {"fwd": median_ms(lambda: wk.w_apply_reference(ri, U, X, perm),
+                              5),
+             "bwd": median_ms(lambda: torch.autograd.grad(
+                 yr, leaves, Yb, retain_graph=True), 5)}
+    size = X.element_size()
+    out = {}
+    for kind in ("fwd", "bwd"):
+        nin, nout, flops = K3_IO[kind]
+        t_byte = C * (nin + nout) * size / PEAK_BYTES * 1e3
+        t_flop = C * flops / PEAK_FP32 * 1e3
+        bound = max(t_byte, t_flop)
+        out[kind] = {"ms": ms[kind], "plain_ms": plain[kind],
+                     "bound_ms": bound,
+                     "bound_by": "operations" if t_flop > t_byte else "bytes",
+                     "cells": C, "max_abs_err": absmax}
+        print(f"[17 K3 {kind} timing, {tag} C={C} perm {perm}] kernel "
+              f"{ms[kind]:.4f} ms (median of 20, launch alone), plain "
+              f"{plain[kind]:.3f} ms | bound {bound:.4f} ms (bytes "
+              f"{t_byte:.4f}, FP32 {t_flop:.4f}), kernel at "
+              f"{100 * bound / ms[kind]:.1f}% of it | kernel vs plain "
+              f"{max(rel):.1e} rel", flush=True)
+    return out
+
+
+class Phase:
+    """Prints a phase's elapsed time when it ends."""
+
+    def __init__(self, label):
+        self.label = label
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            print(f"[{self.label}] elapsed {time.perf_counter() - self.t0:.1f}"
+                  f" s", flush=True)
+
+
+def k3_entry(name, kind, replaces, launches_by_path, timings, worst):
+    """The kernels-line entry of K3's forward or backward kernel: times on
+    the main path's (headline) input, every path's beside it."""
+    main = timings["headline packed XX"][kind]
+    return {"name": name, "route": "cuda",
+            "source": "pyseqm_tpu_torch/csrc/wapply.cu",
+            "replaces": replaces,
+            "launches": sum(launches_by_path.values()),
+            "max_abs_err": max(t[kind]["max_abs_err"]
+                               for t in timings.values()),
+            "max_abs_err_synthetic_f32": worst,
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by")},
+            "library_ms": None, "cells": main["cells"],
+            "launches_by_path": launches_by_path,
+            "by_path": {tag: t[kind] for tag, t in timings.items()}}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -850,25 +1320,69 @@ def main():
               "this checkout", file=sys.stderr)
         return 2
     card = phase_card()
-    phase_build()
-    worst = phase_kernel_parity()
-    md, species, state, launches, sps, parts, per_mol = phase_main_path(card)
+    with Phase("2 build"):
+        ptxas = phase_build()
+    with Phase("3 K1 parity"):
+        worst = phase_kernel_parity()
+    with Phase("13 K3 parity"):
+        worst3 = phase_k3_parity()
+    with Phase("4 main path"), K3Tap() as k3_head:
+        (md, species, state, launches, sps, parts, per_mol, k3_main,
+         k3_step) = phase_main_path(card)
     check(launches > 0, "K1 was not launched on the main path")
-    k1 = phase_kernel_times(md, species, state, launches, worst)
-    phase_diagnostics(md, species, state, per_mol, 1e3 / sps)
+    with Phase("5 K1 timing"):
+        k1 = phase_kernel_times(md, species, state, launches, worst)
+    with Phase("6 diagnostics"):
+        phase_diagnostics(md, species, state, per_mol, 1e3 / sps)
     del md, state
     torch.cuda.empty_cache()
-    phase_accuracy()
+    with Phase("7 accuracy"):
+        phase_accuracy()
 
-    worst2 = phase_k2_parity()
-    scf_eigh, a16 = phase_scf_eigh(card)
-    n_eig, a32, eig_acc = phase_eig_outputs()
-    n_xl, xl_eigh = phase_xl_eigh(card)
+    with Phase("8 K2 parity"):
+        worst2 = phase_k2_parity()
+    with Phase("9 scf-eigh"):
+        scf_eigh, a16 = phase_scf_eigh(card)
+    with Phase("10 eig=True"):
+        n_eig, k3_eig, a32, eig_acc = phase_eig_outputs()
+    with Phase("11 xlbomd-eigh"):
+        n_xl, k3_xl, xl_eigh = phase_xl_eigh(card)
     by_path = {"scf_eigh": scf_eigh["launches"], "eig_true": n_eig,
                "xlbomd_eigh": n_xl}
     for path, n in by_path.items():
         check(n > 0, f"K2 was not launched on the {path} path")
-    t16, t32 = k2_timing(a16, "scf-eigh"), k2_timing(a32, "eig=True")
+    with Phase("12 K2 timing"):
+        t16, t32 = k2_timing(a16, "scf-eigh"), k2_timing(a32, "eig=True")
+    torch.cuda.empty_cache()
+    with Phase("14 flat default"):
+        flat, k3_flat_in = phase_flat_default(card)
+    by_path["flat_default"] = flat["k2_launches"]
+    torch.cuda.empty_cache()
+    with Phase("15 nanostar packed"):
+        nano_pk, nano_ref, k3_nano_pk_in = phase_nanostar_packed(card)
+    torch.cuda.empty_cache()
+    with Phase("16 nanostar dense"):
+        nano_dn, k3_nano_dn_in = phase_nanostar_dense(card, nano_ref)
+    torch.cuda.empty_cache()
+
+    k3_paths = {"xlbomd_sp2": k3_main, "scf_eigh": scf_eigh["k3_launches"],
+                "eig_true": k3_eig, "xlbomd_eigh": k3_xl,
+                "flat_default": flat["k3_launches"],
+                "nanostar_packed": nano_pk["k3_launches"],
+                "nanostar_dense": nano_dn["k3_launches"]}
+    for path, (nf, nb) in k3_paths.items():
+        check(nf > 0, f"K3 forward was not launched on the {path} path")
+    for path in ("xlbomd_sp2", "eig_true", "xlbomd_eigh", "nanostar_packed",
+                 "nanostar_dense"):
+        check(k3_paths[path][1] > 0, f"K3 backward was not launched on the "
+              f"{path} path")
+    xch = (1, 3, 2, 4)
+    with Phase("17 K3 timing"):
+        k3_t = {tag: k3_timing(*inputs[xch], xch, tag) for tag, inputs in
+                (("headline packed XX", k3_head.last),
+                 ("nanostar packed XX", k3_nano_pk_in),
+                 ("flat default", k3_flat_in),
+                 ("nanostar dense grid", k3_nano_dn_in))}
     k2 = {"name": "eigh_jacobi", "route": "cuda",
           "source": "pyseqm_tpu_torch/csrc/eigh.cu",
           "replaces": "pyseqm_tpu/ops/eigh_pallas.py:75",
@@ -882,13 +1396,21 @@ def main():
                                       "mean_sweeps")},
           "launches_by_path": by_path,
           "phases": ["8 parity", "9 scf-eigh", "10 eig=True",
-                     "11 xlbomd-eigh", "12 timing"]}
+                     "11 xlbomd-eigh", "12 timing", "14 flat default"]}
     k1["launches_by_path"] = {"xlbomd_sp2": launches}
+    k3f = k3_entry("wapply_fwd", "fwd", "tools/wapply_pallas.py:181",
+                   {p: n[0] for p, n in k3_paths.items()}, k3_t, worst3)
+    k3b = k3_entry("wapply_bwd", "bwd", "tools/wapply_pallas.py:199",
+                   {p: n[1] for p, n in k3_paths.items()}, k3_t, worst3)
+    k3f["ptxas"] = ptxas
+    k3f["launches_per_xl_step"], k3b["launches_per_xl_step"] = k3_step
     print(json.dumps({"main_path": {"steps_per_s": sps,
                                     "step_breakdown_ms": parts},
                       "scf_eigh": scf_eigh, "eig_true": eig_acc,
-                      "xlbomd_eigh": xl_eigh}), flush=True)
-    print(json.dumps({"kernels": [k1, k2]}), flush=True)
+                      "xlbomd_eigh": xl_eigh, "flat_default": flat,
+                      "nanostar_packed": nano_pk,
+                      "nanostar_dense": nano_dn}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3f, k3b]}), flush=True)
     print(card_line(), flush=True)
     print(f"elapsed {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,11 @@
 
 Batched NDDO semiempirical quantum chemistry (AM1/MNDO/PM3) on an NVIDIA
 GPU: energies, forces by autograd and XL-BOMD molecular dynamics on the
-class-segmented dense integrals with the static packed electronic state,
-with densities from the one-sided Jacobi eigensolver (csrc/eigh.cu) or SP2
-purification (csrc/sp2.cu), both hand-written CUDA kernels.  Entry
+flat pair list, the ordered dense grid, or the class-segmented dense grid
+with the static packed electronic state; densities from the one-sided
+Jacobi eigensolver (csrc/eigh.cu) or SP2 purification (csrc/sp2.cu), and
+every Fock build's two-electron contraction from the fused apply
+(csrc/wapply.cu), all hand-written CUDA kernels.  Entry
 points run on CUDA unless the caller passes device="cpu".  The package
 imports torch and numpy only.
 """
@@ -12,7 +14,8 @@ from .constants import (A0, EV, Constants, constants_from_numpy,  # noqa: F401
                         disable_tf32, make_constants)
 from .models.energy import (EnergyOutput, HamiltonianOutput,  # noqa: F401
                             SEQMConfig, build, energy, force, hamiltonian)
-from .ops.density import packed_heavy_count, packed_solver_size  # noqa: F401
+from .ops.density import (packed_heavy_count,  # noqa: F401
+                          packed_orbital_size, packed_solver_size)
 from .parameters import (PARAMETER_LIST, load_element_tables,  # noqa: F401
                          tables_from_numpy)
 from .scf import SCFConfig  # noqa: F401

@@ -9,8 +9,9 @@ without any SCF: the dynamic density field follows
 with the k=3..9 coefficient tables of Niklasson et al., JCP 130, 214109
 (2009), folded so the history update is one weighted sum over a ring
 buffer Pt.  Bootstrapped by one full SCF; each step is one Hcore + one
-Fock + one density solve (eigh or SP2), and the electronic state lives in
-the static packed layout.
+Fock + one density solve (eigh or SP2).  The electronic state lives in the
+static packed layout on the class-segmented dense path (pack_heavy), and
+at the full (nmol, 4A, 4A) otherwise, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -24,8 +25,8 @@ from ..models.energy import SEQMConfig, _packed_layout, energy
 from ..models.xlbomd import force_xl
 from ..ops.density import static_pack_mat
 from .md import (ACC_SCALE, MDConfig, MDState, MolecularDynamics,
-                 Observables, atom_masses, atomic_charges_packed, dipole,
-                 kinetic_energy)
+                 Observables, atom_masses, atomic_charges,
+                 atomic_charges_packed, dipole, kinetic_energy)
 
 # kappa, alpha, c0..ck per history order k (Niklasson JCP 130, 214109)
 XL_COEFFS = {
@@ -43,9 +44,9 @@ XL_COEFFS = {
 
 @dataclasses.dataclass
 class XLBOMDState:
-    """MD state + electronic history (D, P, Pt), all (nmol, n_st, n_st) in
-    the static packed layout (Pt: (k+1, nmol, n_st, n_st)).  ``step``
-    updates Pt in place."""
+    """MD state + electronic history (D, P, Pt), all (nmol, n, n) with n the
+    static packed size on the packed path and 4A otherwise (Pt:
+    (k+1, nmol, n, n)).  ``step`` updates Pt in place."""
     coordinates: torch.Tensor
     velocities: torch.Tensor
     acc: torch.Tensor
@@ -97,8 +98,8 @@ class XLBOMD(MolecularDynamics):
             st = MDState(coordinates=coordinates, velocities=velocities,
                          acc=torch.zeros_like(coordinates), P=out.P,
                          E0=out.Hf + Ek, step=0)
-        K, n_st = _packed_layout(self.seqm_cfg, st.coordinates.shape[1])
-        D = static_pack_mat(st.P, K, n_st)
+        packed = _packed_layout(self.seqm_cfg, st.coordinates.shape[1])
+        D = st.P if packed is None else static_pack_mat(st.P, *packed)
         Pt = D[None].expand((self.m,) + D.shape).clone()
         return XLBOMDState(coordinates=st.coordinates,
                            velocities=st.velocities, acc=st.acc, D=D, P=D,
@@ -118,9 +119,11 @@ class XLBOMD(MolecularDynamics):
         P = self.coeff_D * state.D + torch.einsum('k,knij->nij', cs, state.Pt)
         state.Pt[self.m - 1 - cindx] = P
 
+        packed = _packed_layout(self.seqm_cfg, species.shape[1])
         f, Epot, D = force_xl(self.const, self.tables, self.seqm_cfg,
                               species, x, P, self.learned,
-                              charges=self._charges_arg(charges))
+                              charges=self._charges_arg(charges),
+                              packed_io=packed is not None)
         acc = f / mass * ACC_SCALE
         v = v + 0.5 * acc * dt
         state = dataclasses.replace(state, coordinates=x, velocities=v,
@@ -128,6 +131,7 @@ class XLBOMD(MolecularDynamics):
         state = self._thermostat(species, state, Epot)
 
         Ek, T = kinetic_energy(self.const, species, state.velocities)
-        q = atomic_charges_packed(self.const, species, state.P,
-                                  self.seqm_cfg.scf.pack_heavy)
+        q = (atomic_charges(self.const, species, state.P) if packed is None
+             else atomic_charges_packed(self.const, species, state.P,
+                                        packed[0]))
         return state, Observables(Ek, T, Epot, dipole(q, state.coordinates), q)

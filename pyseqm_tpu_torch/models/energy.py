@@ -1,9 +1,13 @@
 """Single-point energy / force models (the flagship API).
 
-PyTorch counterpart of ``pyseqm_tpu/models/energy.py`` on the main path:
-the class-segmented dense integrals with the static packed SCF, and the
-orbital energies and per-MO atomic charges of ``eig=True`` (cf. the
-reference Energy / Force / Hamiltonian modules, seqm/basics.py:216-390).
+PyTorch counterpart of ``pyseqm_tpu/models/energy.py`` (cf. the reference
+Energy / Force / Hamiltonian modules, seqm/basics.py:216-390).  The
+integral layout is chosen as the JAX package chooses it
+(``_resolve_pair_layout``): the flat pair list for small molecules, the
+ordered dense grid at A >= 64, and the class-segmented dense grid with the
+static packed SCF when ``SCFConfig.pack_heavy`` is set; plus the orbital
+energies and per-MO atomic charges of ``eig=True``.  The class-segmented
+flat pair list (``pack_pairs`` without the dense grid) is not ported yet.
 """
 from __future__ import annotations
 
@@ -13,14 +17,18 @@ from typing import (Any, Callable, Dict, Mapping, NamedTuple, Optional,
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..constants import Constants, disable_tf32, make_constants
 from ..ops.density import (orbital_permutation, packed_solver_size,
                            static_unpack_mat, sym_eig)
 from ..ops.energy import (assemble_energies, elec_energy_isolated_atom,
-                          elec_energy_tf, pair_nuclear_energy_dense)
-from ..ops.fock import fock_packed_split
-from ..ops.hcore import hcore_dense_split
+                          elec_energy_tf, pair_nuclear_energy,
+                          pair_nuclear_energy_dense)
+from ..ops.fock import fock, fock_packed_split
+from ..ops.hcore import hcore, hcore_dense, hcore_dense_split
+from ..ops.matrix import grid_to_mat
+from ..ops.tetci import from_grid
 from ..parameters import gather_atom_parameters, load_element_tables
 from ..scf import SCFConfig, scf_solve
 from ..system import System, make_system, validate
@@ -38,6 +46,21 @@ class SEQMConfig:
     precise_overlap: bool = True
     # orbital energies e and per-MO atomic charges (cf. basics.py:291-299)
     eig: bool = False
+    # grid-resident two-electron integrals (scatter-free Fock builds).
+    # None = auto: on for the class-segmented packed layout (pack_heavy)
+    # and for large molecules (A >= 64)
+    dense_pair_grid: Optional[bool] = None
+    # Fock layout when the integrals are grid-resident: None = the dense
+    # grid Fock, False = the flat pair list extracted from the grid
+    dense_fock: Optional[bool] = None
+    # recompute the integral stack in the force backward instead of
+    # storing its intermediates (torch.utils.checkpoint); None = auto, on
+    # for A >= 32
+    remat_integrals: Optional[bool] = None
+    # class-segmented pair list keyed on scf.pack_heavy.  None = auto: on
+    # when pack_heavy is set; on the flat pair list (dense_pair_grid
+    # False) it selects hcore_split / fock(WPackSplit), not ported yet
+    pack_pairs: Optional[bool] = None
 
 
 class EnergyOutput(NamedTuple):
@@ -101,32 +124,94 @@ def _orbital_charges(sys: System, v: torch.Tensor) -> torch.Tensor:
     return torch.where(keep, charge, torch.zeros_like(charge))
 
 
-def _packed_layout(cfg: SEQMConfig, A: int) -> Tuple[int, int]:
-    """(K, n_st): the class-segmented dense layout with the static packed
-    electronic state, the one layout this package runs."""
-    K = cfg.scf.pack_heavy
-    if K is None:
+def _resolve_pair_layout(cfg: SEQMConfig, A: int) -> Tuple[bool, Optional[int]]:
+    """(dense, packK): the integral layout, as the JAX package decides it.
+    The class-segmented dense grid (pack_heavy) runs the packed electronic
+    chain; without packing the dense grid only pays off at large A."""
+    pp = cfg.pack_pairs
+    if pp is None:
+        pp = cfg.scf.pack_heavy is not None
+    if pp and cfg.scf.pack_heavy is None:
+        raise ValueError("pack_pairs=True requires scf.pack_heavy "
+                         "(= packed_heavy_count(species))")
+    packK = cfg.scf.pack_heavy if pp else None
+    dense = cfg.dense_pair_grid
+    if dense is None:
+        dense = A >= 64 or packK is not None
+    if packK is not None and not dense:
         raise NotImplementedError(
-            "only the packed path is ported: set SCFConfig(pack_heavy="
-            "packed_heavy_count(species))")
-    n_st = packed_solver_size(K, A)
-    if n_st is None:
-        raise NotImplementedError(f"packing cannot shrink 4A={4 * A} at "
-                                  f"K={K}; the full-layout path is not "
-                                  "ported yet")
-    return K, n_st
+            "the class-segmented flat pair list (pack_pairs with "
+            "dense_pair_grid=False: hcore_split, fock(WPackSplit)) is not "
+            "ported yet; it is queued under ROADMAP M14")
+    return dense, packK
 
 
-def _integral_stack(const, sys, p, cfg, K: int, n_st: int):
-    """(packed core matrix, class-segmented integrals)."""
-    return hcore_dense_split(const, sys, p, K, n_st, cfg.pair_outer_cutoff,
-                             cfg.precise_overlap)
+def _packed_layout(cfg: SEQMConfig, A: int) -> Optional[Tuple[int, int]]:
+    """(K, n_st) when the run uses the static packed electronic state (the
+    class-segmented dense grid, with packing able to shrink 4A), else
+    None (the full (nmol, 4A, 4A) layout)."""
+    dense, packK = _resolve_pair_layout(cfg, A)
+    if not (dense and packK is not None):
+        return None
+    n_st = packed_solver_size(packK, A)
+    return None if n_st is None else (packK, n_st)
+
+
+def _integral_stack(const, sys, p, cfg, packed_m: Optional[int] = None):
+    """(M, w, w_f): the core Hamiltonian (the block grid, or the static
+    packed matrix of size ``packed_m`` on the class-segmented path), the
+    two-electron integrals, and the integrals to feed the final Fock build
+    (the flat pairs extracted from the grid under dense_fock=False).
+
+    Large molecules build the integrals on the dense grid (hcore_dense:
+    no per-pair gathers); the class-segmented path cuts hydrogen pairs to
+    their 4- and 1-integral classes.  With remat_integrals (auto at
+    A >= 32) the build is checkpointed: the force backward recomputes it
+    instead of keeping every intermediate.
+    """
+    A = sys.species.shape[1]
+    dense, packK = _resolve_pair_layout(cfg, A)
+    if packed_m is not None and packK is None:
+        raise ValueError("packed_m requires the class-segmented dense path "
+                         "(scf.pack_heavy)")
+    if packK is not None:
+        def build(sys, p):
+            return hcore_dense_split(const, sys, p, packK, packed_m,
+                                     cfg.pair_outer_cutoff,
+                                     cfg.precise_overlap)
+    elif dense:
+        def build(sys, p):
+            return hcore_dense(const, sys, p, cfg.pair_outer_cutoff,
+                               cfg.precise_overlap)
+    else:
+        def build(sys, p):
+            return hcore(const, sys, p, False, cfg.precise_overlap)
+    remat = cfg.remat_integrals
+    if remat is None:
+        remat = A >= 32
+    if remat and torch.is_grad_enabled():
+        M, w = checkpoint(build, sys, p, use_reentrant=False)
+    else:
+        M, w = build(sys, p)
+    if dense and cfg.dense_fock is False:
+        if not hasattr(w, "rig"):
+            raise ValueError(
+                "dense_fock=False (flat extraction) is not supported with "
+                "class-segmented dense integrals; set pack_pairs=False")
+        return M, w, from_grid(w, sys.pair_i, sys.pair_j)
+    return M, w, w
 
 
 def _nuclear_term(const, sys, w, cfg, p):
-    """(EnucAB, its pair mask) on the dense grid."""
-    return pair_nuclear_energy_dense(const, sys, w.gam_grid(), cfg.method, p,
-                                     cfg.pair_outer_cutoff)
+    """(EnucAB, its pair mask or None for sys.pair_mask): gather-free on
+    grid-resident integrals, per flat pair otherwise."""
+    if hasattr(w, "gam_grid"):
+        return pair_nuclear_energy_dense(const, sys, w.gam_grid(), cfg.method,
+                                         p, cfg.pair_outer_cutoff)
+    if hasattr(w, "rig"):
+        return pair_nuclear_energy_dense(const, sys, w.rig[..., 0],
+                                         cfg.method, p, cfg.pair_outer_cutoff)
+    return pair_nuclear_energy(const, sys, w.ri[..., 0], cfg.method, p), None
 
 
 def _species_tensor(species, device) -> torch.Tensor:
@@ -166,21 +251,33 @@ def energy(const: Constants, tables: Mapping[str, torch.Tensor],
     check_species(cfg, tables, species, charges)
     species = _species_tensor(species, coordinates.device)
     A = species.shape[1]
-    K, n_st = _packed_layout(cfg, A)
+    _, packK = _resolve_pair_layout(cfg, A)
+    packed = _packed_layout(cfg, A)
     sys = make_system(const, species, coordinates, charges,
-                      cfg.pair_outer_cutoff, heavy_count=K)
+                      cfg.pair_outer_cutoff, heavy_count=packK)
     p = _atom_parameters(tables, cfg.method, sys, learned, coordinates)
 
-    M, w = _integral_stack(const, sys, p, cfg, K, n_st)
-    Pp, notconverged = scf_solve(const, sys, M, w, p, cfg.scf, P0,
-                                 packed=(K, n_st))
-    Fp = fock_packed_split(sys, Pp, M, w, p, K, n_st)
-    eel_tf = elec_energy_tf(Pp, Fp, M)
+    if packed is not None:
+        # the whole fixed point at the static packed size, no relayouts
+        K, n_st = packed
+        M, w, _ = _integral_stack(const, sys, p, cfg, packed_m=n_st)
+        Pp, notconverged = scf_solve(const, sys, M, w, p, cfg.scf, P0,
+                                     packed=packed)
+        Fp = fock_packed_split(sys, Pp, M, w, p, K, n_st)
+        eel_tf = elec_energy_tf(Pp, Fp, M)
+        P = static_unpack_mat(Pp, K, A)
+        F = static_unpack_mat(Fp, K, A)
+        H = static_unpack_mat(M, K, A)
+    else:
+        M, w, w_f = _integral_stack(const, sys, p, cfg)
+        P, notconverged = scf_solve(const, sys, M, w, p, cfg.scf, P0)
+        F = fock(sys, P, M, w_f, p)
+        H = grid_to_mat(M)
+        eel_tf = elec_energy_tf(P, F, H)
     EnucAB, enuc_mask = _nuclear_term(const, sys, w, cfg, p)
     Eiso = elec_energy_isolated_atom(const, sys.species, p)
     Hf, Etot, Eel, Enuc, Eiso_sum = assemble_energies(
         const, sys, eel_tf, EnucAB, Eiso, cfg.hf_flag, pair_mask=enuc_mask)
-    F = static_unpack_mat(Fp, K, A)
     e = charge = None
     if cfg.eig:
         # with_flag surfaces a molecule whose Jacobi sweeps failed (re-solved
@@ -189,10 +286,8 @@ def energy(const: Constants, tables: Mapping[str, torch.Tensor],
         e, v, eig_failed = sym_eig(sys, F, eig_only=True, with_flag=True)
         charge = _orbital_charges(sys, v)
         notconverged = notconverged | eig_failed
-    return EnergyOutput(Hf, Etot, Eel, Enuc, Eiso_sum, EnucAB,
-                        static_unpack_mat(Pp, K, A), notconverged, F=F,
-                        Hcore=static_unpack_mat(M, K, A), e=e, charge=charge,
-                        w=w)
+    return EnergyOutput(Hf, Etot, Eel, Enuc, Eiso_sum, EnucAB, P,
+                        notconverged, F=F, Hcore=H, e=e, charge=charge, w=w)
 
 
 def hamiltonian(const: Constants, tables: Mapping[str, torch.Tensor],

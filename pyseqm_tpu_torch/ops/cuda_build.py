@@ -4,11 +4,13 @@ Each source ``csrc/<name>.cu`` has a plain C interface and compiles, at
 first use, into ``_build/lib<name>.so`` next to the package (git-ignored):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o _build/lib<name>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>.so csrc/<name>.cu
 
-No ``--use_fast_math``: divisions and square roots stay IEEE.  A library is
-rebuilt when it is older than its source.  Builds of different sources
-may run concurrently (one nvcc each); loading is serialised.
+No ``--use_fast_math``: divisions and square roots stay IEEE.  ptxas's
+report (registers, spills, stack and shared memory per kernel) is kept in
+``_build/lib<name>.ptxas.txt`` (``ptxas_report``).  A library is rebuilt
+when it is older than its source.  Builds of different sources may run
+concurrently (one nvcc each); loading is serialised.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from typing import Dict, Sequence
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -47,8 +49,16 @@ def build(name: str) -> str:
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{res.stderr}")
+    with open(os.path.join(BUILD_DIR, f"lib{name}.ptxas.txt"), "w") as fh:
+        fh.write(res.stderr)
     os.replace(tmp, lib_path)
     return lib_path
+
+
+def ptxas_report(name: str) -> str:
+    """ptxas's per-kernel report of the last build of csrc/<name>.cu."""
+    with open(os.path.join(BUILD_DIR, f"lib{name}.ptxas.txt")) as fh:
+        return fh.read()
 
 
 def load(name: str, fn: str, argtypes: Sequence) -> ctypes.CDLL:
@@ -59,8 +69,8 @@ def load(name: str, fn: str, argtypes: Sequence) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(build(name))
-            entry = getattr(lib, fn)
-            entry.argtypes = list(argtypes)
-            entry.restype = ctypes.c_int
             _libs[name] = lib
+        entry = getattr(lib, fn)
+        entry.argtypes = list(argtypes)
+        entry.restype = ctypes.c_int
     return lib

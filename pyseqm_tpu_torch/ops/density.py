@@ -2,9 +2,11 @@
 
 PyTorch counterpart of ``pyseqm_tpu/ops/density.py`` (cf. the reference
 diag.py, SP2.py and pack.py): the static compact-orbital packing helpers,
-``sym_eig`` on its ``prepacked`` / ``pack_heavy`` / orbital-permutation
-routes with the rescue of unconverged Jacobi molecules, and ``sp2`` on its
-``pack_heavy`` / ``prepacked`` routes.
+``sym_eig`` and ``sp2`` on every route (``prepacked``, ``pack_heavy``, and
+the valid-first orbital permutation, optionally cut to ``pack_n``), the
+rescue of unconverged Jacobi molecules, the Gelfand-refined spectral
+bounds of SP2 (``tight_bounds``) and ``eigh_rescue``, the exact re-solve
+of the worst SP2 molecules.
 
 The algorithm is chosen by dtype and size, as the JAX package chooses it
 on its production backend: float32 at n <= 128 runs the kernels'
@@ -15,6 +17,7 @@ plain torch.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -28,9 +31,11 @@ from .sp2_kernel import MAX_N, sp2_purify
 
 SP2_MAX_ITER = 200
 
-# molecules re-solved by rescue_unconverged_panels (plain integer; reset by
-# callers that count)
+# molecules re-solved by rescue_unconverged_panels, and iterations run by
+# the SP2 loop of n > 128 or float64 (plain integers; reset by callers that
+# count)
 rescued = 0
+sp2_iterations = 0
 
 
 def orbital_mask(sys: System) -> torch.Tensor:
@@ -105,6 +110,13 @@ def _occupations(e, nocc, dtype, check_degeneracy: bool):
     return occ.to(dtype)
 
 
+def _pack_slice(Fp, pack_n: int):
+    """The valid-orbitals-first permuted matrix cut to the static compact
+    size: rows >= pack_n are decoupled padding, so the retained spectrum is
+    unchanged."""
+    return Fp[:, :pack_n, :pack_n]
+
+
 def _unpack_embed(Pp, n: int):
     """Embed a compact (nmol, m, m) block back into (nmol, n, n)."""
     m = Pp.shape[-1]
@@ -149,11 +161,11 @@ def sym_eig(sys: System, F: torch.Tensor, eig_only: bool = False,
     packed_solver_size(pack_heavy, A) and P (and e, at length n_st) stays
     packed.  ``pack_heavy`` without ``prepacked`` packs a (nmol, 4A, 4A) F
     for the solve and unpacks P.  Otherwise the valid orbitals are
-    permuted to the front at full 4A.  ``pack_n`` is not ported.
+    permuted to the front at full 4A, and with ``pack_n`` (=
+    packed_orbital_size(species)) the permuted matrix is cut to its first
+    pack_n rows and columns (pure decoupled padding beyond every molecule's
+    norb), so the solve runs at pack_n.
     """
-    if pack_n is not None:
-        raise NotImplementedError("sym_eig with pack_n (pack_orbitals) is "
-                                  "not ported yet")
     n = F.shape[-1]
     A = sys.species.shape[1]
     n_st = None
@@ -193,6 +205,8 @@ def sym_eig(sys: System, F: torch.Tensor, eig_only: bool = False,
     else:
         perm, inv = orbital_permutation(sys)
         Fp = permute_mat(F, perm)
+        if pack_n is not None and pack_n < n:
+            Fp = _pack_slice(Fp, pack_n)
         h1, hN = _gershgorin(Fp)
         Fp = _fill_padding_diag(Fp, sys.norb, h1, hN)
         m = orbital_mask(sys).to(F.dtype)
@@ -223,6 +237,16 @@ def sym_eig(sys: System, F: torch.Tensor, eig_only: bool = False,
     Pp = 2.0 * torch.einsum('nik,nk,njk->nij', v, occ, v)
     P = unpack(Pp) * (m[:, :, None] * m[:, None, :])
     return (e, P, v, eig_failed) if with_flag else (e, P, v)
+
+
+def packed_orbital_size(species, multiple: int = 128) -> int:
+    """Compact-orbital size for SCFConfig.pack_orbitals (host-side):
+    ceil(max norb / multiple) * multiple, clamped to 4A, the smallest
+    aligned size holding every molecule's physical orbitals (hydrogens 1,
+    heavies 4).  At 884 atoms / 1766 orbitals: 1792 against 3536."""
+    sp = np.asarray(species.cpu() if torch.is_tensor(species) else species)
+    norb_max = int((4 * (sp > 1).sum(axis=-1) + (sp == 1).sum(axis=-1)).max())
+    return int(min(4 * sp.shape[-1], -(-norb_max // multiple) * multiple))
 
 
 def packed_heavy_count(species) -> int:
@@ -304,6 +328,7 @@ def _sp2_loop(a0, noccd, eps, f32):
     torch: masked per-molecule updates, a running trace from scalars
     refreshed from the iterate every CHUNK iterations, and the host checks
     convergence once per chunk."""
+    global sp2_iterations
     n = a0.shape[-1]
     tr = torch.diagonal(a0, dim1=-2, dim2=-1).sum(dim=-1)
     err0 = torch.abs(tr - noccd)
@@ -335,60 +360,175 @@ def _sp2_loop(a0, noccd, eps, f32):
             k += 1
         tr_exact = torch.diagonal(a0, dim1=-2, dim2=-1).sum(dim=-1)
         tr = torch.where(nc, tr_exact, tr)
+    sp2_iterations += k
     return 2.0 * a0
+
+
+def _gelfand_radius(Fc, sigma, squarings: int = 2):
+    """Upper bound on max |lambda(Fc) - sigma| by Gelfand squaring:
+    gersh((Fc - sigma I)^(2^k))^(2^-k), one batched product per squaring
+    (normalized against overflow).  Tighter bounds than Gershgorin give
+    SP2 a larger scaled gap: fewer iterations, less amplified noise."""
+    n = Fc.shape[-1]
+    eye = torch.eye(n, dtype=Fc.dtype, device=Fc.device)
+    B = Fc - eye[None] * sigma[:, None, None]
+    logr = torch.zeros_like(sigma)
+    for k in range(squarings):
+        B = B @ B
+        g = torch.clamp(B.abs().sum(dim=-1).amax(dim=-1), min=1.0e-30)
+        logr = logr + torch.log(g) / (2.0 ** (k + 1))
+        B = B / g[:, None, None]
+    return torch.exp(logr)
+
+
+def _sp2_prep(sys: System, F: torch.Tensor, tight_bounds: bool,
+              pack_n: Optional[int], pack_heavy: Optional[int],
+              prepacked: bool):
+    """(a0, nocc, out_mask, unpack, kernel): the pre-scaled SP2 iterate
+    a0 = (hN I - F)/(hN - h1) in the solver's layout, the occupied counts,
+    the orbital mask of the caller's layout, the map of the solver's
+    layout back to it, and whether the purifier kernel's semantics apply
+    (float32, n <= 128).  Padding orbitals are pinned at occupation zero
+    by setting their diagonal to hN.
+
+    Layouts: the static packed one (``pack_heavy``, when packing shrinks
+    4A, or ``prepacked``); at kernel sizes the caller's own layout with
+    padding pinned in place (SP2 sorts no eigenvalues, so it needs no
+    permutation); otherwise the valid-first orbital permutation, cut to
+    ``pack_n``.
+    """
+    dtype = F.dtype
+    A = sys.species.shape[1]
+    n_full = F.shape[-1]
+    n_st = None
+    if prepacked:
+        if pack_heavy is None:
+            raise ValueError("prepacked=True requires pack_heavy")
+        n_st = packed_solver_size(pack_heavy, A)
+        if n_st is None or n_full != n_st:
+            raise ValueError(f"prepacked F has n={n_full}, expected "
+                             f"packed_solver_size={n_st}")
+    elif pack_heavy is not None:
+        n_st = packed_solver_size(pack_heavy, A)
+    m = orbital_mask(sys).to(dtype)
+    kernel = dtype == torch.float32 and (n_st or n_full) <= MAX_N
+    if n_st is not None:
+        mk = static_pack_vec(m, pack_heavy, n_st)
+        Fm = (F * (mk[:, :, None] * mk[:, None, :]) if prepacked else
+              static_pack_mat(F * (m[:, :, None] * m[:, None, :]),
+                              pack_heavy, n_st))
+        pad = mk == 0.0
+        mout = mk if prepacked else m
+
+        def unpack(a):
+            return a if prepacked else static_unpack_mat(a, pack_heavy, A)
+    elif kernel:
+        Fm = F * (m[:, :, None] * m[:, None, :])
+        pad = m == 0.0
+        mout = m
+
+        def unpack(a):
+            return a
+    else:
+        perm, inv = orbital_permutation(sys)
+        Fm = permute_mat(F, perm)
+        if pack_n is not None and pack_n < n_full:
+            # the whole iteration at the compact valid-orbital size
+            Fm = _pack_slice(Fm, pack_n)
+        idx = torch.arange(Fm.shape[-1], device=F.device)
+        pad = idx[None, :] >= sys.norb[:, None]
+        mout = m
+
+        def unpack(a):
+            return permute_mat(_unpack_embed(a, n_full), inv)
+    h1, hN = _gershgorin(Fm)
+    dg = torch.diagonal(Fm, dim1=-2, dim2=-1)
+    if tight_bounds:
+        # pin padding mid-spectrum so it cannot widen the estimate, refine,
+        # then pin it at the tightened upper bound below
+        sigma = 0.5 * (h1 + hN)
+        r = 1.02 * _gelfand_radius(
+            _set_diag(Fm, torch.where(pad, sigma[:, None], dg)), sigma)
+        h1 = torch.maximum(h1, sigma - r)
+        hN = torch.minimum(hN, sigma + r)
+    Fp = _set_diag(Fm, torch.where(pad, hN[:, None], dg))
+    eye = torch.eye(Fm.shape[-1], dtype=dtype, device=F.device)
+    a0 = (eye * hN[:, None, None] - Fp) / (hN - h1)[:, None, None]
+    return a0.contiguous(), sys.nocc.to(dtype), mout, unpack, kernel
 
 
 def sp2_input(sys: System, F: torch.Tensor, pack_heavy: int,
               prepacked: bool = False):
-    """(a0, nocc, mk): the pre-scaled SP2 iterate a0 = (hN I - F)/(hN - h1)
-    in the static packed layout, the occupied counts, and the packed
-    orbital mask.  Padding orbitals are pinned at occupation zero by
-    setting their diagonal to the Gershgorin upper bound hN."""
-    dtype = F.dtype
+    """(a0, nocc, mk): the pre-scaled SP2 iterate in the static packed
+    layout, the occupied counts and the packed orbital mask."""
     A = sys.species.shape[1]
-    K = pack_heavy
-    n_st = packed_solver_size(K, A)
-    if n_st is None:
-        raise NotImplementedError(f"packing cannot shrink 4A={4 * A} at "
-                                  f"K={K}; the unpacked sp2 is not ported")
-    if prepacked and F.shape[-1] != n_st:
-        raise ValueError(f"prepacked F has n={F.shape[-1]}, expected "
-                         f"packed_solver_size={n_st}")
-    m = orbital_mask(sys).to(dtype)
-    mk = static_pack_vec(m, K, n_st)
-    Fm = (F * (mk[:, :, None] * mk[:, None, :]) if prepacked else
-          static_pack_mat(F * (m[:, :, None] * m[:, None, :]), K, n_st))
-    n = Fm.shape[-1]
-    h1, hN = _gershgorin(Fm)
-    # padding diagonal at hN -> scaled eigenvalue 0 -> occupation 0
-    Fp = Fm + torch.diag_embed((1.0 - mk) * hN[:, None])
-    eye = torch.eye(n, dtype=dtype, device=F.device)
-    a0 = (eye * hN[:, None, None] - Fp) / (hN - h1)[:, None, None]
-    return a0.contiguous(), sys.nocc.to(dtype), mk
+    if packed_solver_size(pack_heavy, A) is None:
+        raise ValueError(f"packing cannot shrink 4A={4 * A} at "
+                         f"K={pack_heavy}")
+    a0, nocc, _, _, _ = _sp2_prep(sys, F, False, None, pack_heavy, prepacked)
+    mk = static_pack_vec(orbital_mask(sys).to(F.dtype), pack_heavy,
+                         a0.shape[-1])
+    return a0, nocc, mk
 
 
 def sp2(sys: System, F: torch.Tensor, eps: float = 1.0e-4,
+        tight_bounds: bool = False, pack_n: Optional[int] = None,
         pack_heavy: Optional[int] = None, prepacked: bool = False):
-    """SP2 density-matrix purification (cf. SP2.py:3-72) on the static
-    packed layout.
+    """SP2 density-matrix purification (cf. SP2.py:3-72).
 
-    ``prepacked``: F is already packed at packed_solver_size(pack_heavy, A)
-    and the returned P stays packed; otherwise F is (nmol, 4A, 4A) and P
-    comes back in that layout.
+    Returns P in the caller's layout: (nmol, 4A, 4A), or packed at
+    packed_solver_size(pack_heavy, A) when ``prepacked``.  Float32 at
+    n <= 128 runs the purifier kernel's semantics (eps floored at 1e-5);
+    otherwise the JAX package's XLA-path loop (eps floored at 3e-4 in
+    float32, clamped to [1e-7, 1e-3] in float64), with every product in
+    full float32 (TF32 off; the JAX package's ``precision``, ``dots``,
+    ``sort_packing`` and ``panel_out`` are TPU knobs and not ported).
+    ``tight_bounds`` refines the Gershgorin bounds by Gelfand squaring.
     """
-    if pack_heavy is None:
-        raise NotImplementedError(
-            "sp2 without pack_heavy (orbital permutation / pack_n routes) "
-            "is not ported yet")
     f32 = F.dtype == torch.float32
-    a0, noccd, mk = sp2_input(sys, F, pack_heavy, prepacked)
-    if f32 and a0.shape[-1] <= MAX_N:
-        # the purifier kernel's semantics (eps floored at 1e-5)
-        Pp = sp2_purify(a0, noccd, max(eps, 1.0e-5))
+    a0, noccd, mout, unpack, kernel = _sp2_prep(sys, F, tight_bounds, pack_n,
+                                                pack_heavy, prepacked)
+    if kernel:
+        P = sp2_purify(a0, noccd, max(eps, 1.0e-5))
     else:
         eps = max(eps, 3.0e-4) if f32 else min(max(eps, 1.0e-7), 1.0e-3)
-        Pp = _sp2_loop(a0, noccd, eps, f32)
-    Pp = Pp * (mk[:, :, None] * mk[:, None, :])
-    if Pp.shape[-1] != F.shape[-1]:
-        Pp = static_unpack_mat(Pp, pack_heavy, sys.species.shape[1])
-    return Pp
+        P = _sp2_loop(a0, noccd, eps, f32)
+    return unpack(P) * (mout[:, :, None] * mout[:, None, :])
+
+
+def _subset_system(sys: System, idx: torch.Tensor) -> System:
+    """A molecule subset of a System (the static pair lists shared)."""
+    return dataclasses.replace(
+        sys, species=sys.species[idx], coordinates=sys.coordinates[idx],
+        charges=sys.charges[idx], atom_mask=sys.atom_mask[idx],
+        heavy_mask=sys.heavy_mask[idx], nheavy=sys.nheavy[idx],
+        nhydro=sys.nhydro[idx], nocc=sys.nocc[idx], norb=sys.norb[idx],
+        zi=sys.zi[idx], zj=sys.zj[idx], pair_mask=sys.pair_mask[idx],
+        rij=sys.rij[idx], xij=sys.xij[idx])
+
+
+def eigh_rescue(sys: System, F: torch.Tensor, P: torch.Tensor,
+                frac: float = 1.0 / 64.0,
+                ref: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Re-purify the worst SP2 molecules with the exact eigh path.
+
+    SP2's trace criterion leaves a small tail of molecules (near-degenerate
+    HOMO-LUMO) with a rotated or wrong-occupation subspace.  Scored by
+    ||P - ref||^2 against a reference density that tracks the physical
+    state (XL-BOMD's propagated field), which also sees occupation flips,
+    or else by the commutator ||[F, P]||^2; the top ceil(frac * nmol)
+    molecules are re-solved by sym_eig with degeneracy-aware occupations
+    (F, P (nmol, 4A, 4A))."""
+    nmol = F.shape[0]
+    k = max(1, int(round(nmol * frac)))
+    if k >= nmol:
+        return sym_eig(sys, F, check_degeneracy=True)[1]
+    if ref is not None:
+        score = ((P - ref) ** 2).sum(dim=(-2, -1))
+    else:
+        G = F @ P
+        score = ((G - G.transpose(-1, -2)) ** 2).sum(dim=(-2, -1))
+    idx = torch.topk(score, k).indices
+    Psub = sym_eig(_subset_system(sys, idx), F[idx],
+                   check_degeneracy=True)[1]
+    return P.index_put((idx,), Psub)

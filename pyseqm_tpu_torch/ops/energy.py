@@ -1,8 +1,9 @@
 """Energy terms: electronic, core-core, isolated-atom, heat of formation.
 
 PyTorch counterpart of ``pyseqm_tpu/ops/energy.py`` (cf. the reference
-seqm/seqm_functions/energy.py:4-118): the compensated electronic energies,
-the dense core-core term and the compensated Hf assembly.
+seqm/seqm_functions/energy.py:4-118): the plain and compensated electronic
+energies, the core-core term on the flat pair list and on the dense grid,
+and the compensated Hf assembly.
 """
 from __future__ import annotations
 
@@ -10,10 +11,21 @@ from typing import Dict, Tuple
 
 import torch
 
-from ..constants import Constants
+from ..constants import A0, Constants
 from ..system import System
 from .accmath import exp as _exp
 from .xsum import TwoFloat, csum, csum2, tf_add, tf_neg, tf_scale
+
+
+def elec_energy(P, F, Hcore):
+    """Eelec = 0.5 sum P o (Hcore + F); all matrices full-symmetric (eV)."""
+    return 0.5 * (P * (Hcore + F)).sum(dim=(1, 2))
+
+
+def elec_energy_xl(D, P, F, Hcore):
+    """XL-BOMD functional E(D,P) = Tr(D F) - 0.5 Tr((F - Hcore) P)
+    (cf. seqm/XLBOMD.py:40-52)."""
+    return (D * F - 0.5 * (F - Hcore) * P).sum(dim=(1, 2))
 
 
 def elec_energy_tf(P, F, Hcore) -> TwoFloat:
@@ -33,6 +45,42 @@ def elec_energy_isolated_atom(const: Constants, Z, p: Dict[str, torch.Tensor]):
             + p["g_ss"] * const.gssc[Z] + p["g_pp"] * const.gppc[Z]
             + p["g_sp"] * const.gspc[Z] + p["g_p2"] * const.gp2c[Z]
             + p["h_sp"] * const.hspc[Z])
+
+
+def _gaussians(p, method):
+    """(K, L, M) core-core Gaussian parameters, each (nmol, A, ng); None for
+    MNDO."""
+    if method == "MNDO":
+        return None
+    ng = {"AM1": 4, "PM3": 2}[method]
+    return tuple(torch.stack([p[f"Gaussian{g + 1}_{c}"] for g in range(ng)],
+                             dim=-1) for c in "KLM")
+
+
+def pair_nuclear_energy(const: Constants, sys: System, gam, method: str,
+                        p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Core-core repulsion per flat pair (eV), masked (cf. energy.py:38-78).
+
+    gam: (nmol, NP) = (s_i s_i | s_j s_j) two-center integral.
+    """
+    iu, ju = sys.pair_i, sys.pair_j
+    rija = sys.rij * A0                           # Angstrom
+    tore_i, tore_j = const.tore[sys.zi], const.tore[sys.zj]
+    t1 = tore_i * tore_j * gam
+    # N-H / O-H: the i-side exponential gains a factor r
+    xh = ((sys.zi == 7) | (sys.zi == 8)) & (sys.zj == 1)
+    t2 = _exp(-p["alpha"][:, iu] * rija) * torch.where(
+        xh, rija, torch.ones_like(rija))
+    t3 = _exp(-p["alpha"][:, ju] * rija)
+    enuc = t1 * (1.0 + t2 + t3)
+    g = _gaussians(p, method)
+    if g is not None:
+        K, L, Mg = g
+        r = rija[..., None]
+        t5 = (K[:, iu] * _exp(-L[:, iu] * (r - Mg[:, iu]) ** 2)).sum(dim=-1)
+        t6 = (K[:, ju] * _exp(-L[:, ju] * (r - Mg[:, ju]) ** 2)).sum(dim=-1)
+        enuc = enuc + tore_i * tore_j / rija * (t5 + t6)
+    return torch.where(sys.pair_mask, enuc, torch.zeros_like(enuc))
 
 
 def pair_nuclear_energy_dense(const: Constants, sys: System, gam_grid,
@@ -66,11 +114,9 @@ def pair_nuclear_energy_dense(const: Constants, sys: System, gam_grid,
     t3 = _exp(-col(p["alpha"]) * rija)
     enuc = t1 * (1.0 + t2 + t3)
 
-    if method != "MNDO":
-        ng = {"AM1": 4, "PM3": 2}[method]
-        K = torch.stack([p[f"Gaussian{g+1}_K"] for g in range(ng)], dim=-1)
-        L = torch.stack([p[f"Gaussian{g+1}_L"] for g in range(ng)], dim=-1)
-        Mg = torch.stack([p[f"Gaussian{g+1}_M"] for g in range(ng)], dim=-1)
+    g = _gaussians(p, method)
+    if g is not None:
+        K, L, Mg = g
         r = rija[..., None]
         rw = lambda v: v[:, :, None, :]          # noqa: E731
         cl = lambda v: v[:, None, :, :]          # noqa: E731
@@ -80,6 +126,12 @@ def pair_nuclear_energy_dense(const: Constants, sys: System, gam_grid,
 
     enuc = torch.where(pm, enuc, torch.zeros_like(enuc))
     return enuc.reshape(nmol, A * A), pm.reshape(nmol, A * A)
+
+
+def total_energy(EnucAB, Eelec) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(Etot, Enuc) from the per-pair core-core terms."""
+    Enuc = EnucAB.sum(dim=-1)
+    return Eelec + Enuc, Enuc
 
 
 def heat_formation(const: Constants, sys: System, Etot, Eiso, hf_flag=True):

@@ -1,7 +1,12 @@
-"""Fock matrix construction F = Hcore + G(P) in the static packed layout.
+"""Fock matrix construction F = Hcore + G(P).
 
-PyTorch counterpart of ``pyseqm_tpu/ops/fock.py::fock_packed_split``
-(cf. the reference fock, seqm/seqm_functions/fock.py:6-139).
+PyTorch counterpart of ``pyseqm_tpu/ops/fock.py`` (cf. the reference fock,
+seqm/seqm_functions/fock.py:6-139): ``fock_packed_split`` in the static
+packed layout, and ``fock`` on the block grid for the flat pair list
+(WPack), the ordered dense grid (WPackGrid) and the class-segmented grid
+(WPackGridSplit).  Every two-electron contraction is the fused apply K3
+(tetci._w_apply).  The class-segmented flat pair list (WPackSplit) is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -10,8 +15,9 @@ from typing import Dict
 import torch
 
 from ..system import System
-from .matrix import assemble_packed_mat
-from .tetci import WPack, WPackGridSplit, w_coulomb_i, w_exchange
+from .matrix import assemble_packed_mat, diag_blocks, grid_to_mat, mat_to_grid
+from .tetci import (WPack, WPackGrid, WPackGridSplit, w_coulomb_i,
+                    w_coulomb_j, w_exchange)
 
 
 def _one_center(Pd, gss, gsp, gpp, gp2, hsp):
@@ -84,3 +90,71 @@ def fock_packed_split(sys: System, Pp: torch.Tensor, Mp: torch.Tensor,
     F = Mp + assemble_packed_mat(xxg, xcol, xss, tmp_l + dsum_l, n_st)
     mk = static_pack_vec(orbital_mask(sys).to(Pp.dtype), K, n_st)
     return F * (mk[:, :, None] * mk[:, None, :])
+
+
+def fock(sys: System, P: torch.Tensor, M: torch.Tensor, w,
+         p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Fock matrix (nmol, 4A, 4A) from the total density P (nmol, 4A, 4A),
+    the core Hamiltonian grid M (nmol, A, A, 4, 4), the compact integrals w
+    (WPack, WPackGrid or WPackGridSplit; w is never materialized) and the
+    per-atom parameters g_ss, g_sp, g_pp, g_p2, h_sp (each (nmol, A))."""
+    nmol, A = sys.species.shape
+    iu, ju = sys.pair_i, sys.pair_j
+    Pg = mat_to_grid(P, A)
+    Pd = diag_blocks(P, A)                          # (nmol, A, 4, 4)
+    idx = torch.arange(A, device=P.device)
+    # one-center two-electron terms on the diagonal blocks (fock.py:54-64)
+    tmp = _one_center(Pd, p["g_ss"], p["g_sp"], p["g_pp"], p["g_p2"],
+                      p["h_sp"])
+    F = M.clone()
+
+    if isinstance(w, WPackGridSplit):
+        # class-segmented grid: the [0:K, 0:K] ordered sub-grid pays the
+        # fused apply, the X-H block one elementwise 4x4 product (one array
+        # serves both orientations), the H-H block a scalar
+        K = w.xh.shape[1]
+        sH, sL = slice(0, K), slice(K, None)
+        Pd_h = Pd[:, sH]
+        pss_l = Pd[:, sL, 0, 0]                     # (nmol, AH)
+        pack = WPack(ri=w.xx.rig, U=w.xx.ug)
+        dsum_h = w_coulomb_i(pack, Pd_h[:, None]).sum(dim=2)
+        F[:, sH, sH] += -0.5 * w_exchange(pack, Pg[:, sH, sH])
+        # XH block: w[ab, cd] = wblk[ab] delta_c0 delta_d0
+        dsum_h = dsum_h + (w.xh * pss_l[:, None, :, None, None]).sum(dim=2)
+        dsum_l = (w.xh * Pd_h[:, :, None]).sum(dim=(1, -1, -2))
+        xcol = -0.5 * (w.xh * Pg[:, sH, sL, :, 0][..., None, :]).sum(dim=-1)
+        F[:, sH, sL, :, 0] += xcol
+        F[:, sL, sH, 0, :] += xcol.transpose(1, 2)
+        # HH block: scalar (ss|ss); the ordered square covers both
+        # orientations in one row reduction
+        dsum_l = dsum_l + (w.hh * pss_l[:, None, :]).sum(dim=2)
+        F[:, sL, sL, 0, 0] += -0.5 * w.hh * Pg[:, sL, sL, 0, 0]
+        idh, idl = idx[:K], idx[K:]
+        F[:, idh, idh] += tmp[:, sH] + dsum_h
+        F[:, idl, idl] += tmp[:, sL]
+        F[:, idl, idl, 0, 0] += dsum_l
+        return grid_to_mat(F)
+
+    if isinstance(w, WPackGrid):
+        # ordered dense grid: each cell (i, j) carries the bra on i, so one
+        # ket pairing covers both Coulomb halves of the flat path and the
+        # exchange grid yields both F triangles; no scatters
+        pack = WPack(ri=w.rig, U=w.ug)
+        dsum = w_coulomb_i(pack, Pd[:, None]).sum(dim=2)
+        F = F - 0.5 * w_exchange(pack, Pg)           # zero on diagonal cells
+        F[:, idx, idx] += tmp + dsum
+        return grid_to_mat(F)
+
+    if not isinstance(w, WPack):
+        raise NotImplementedError(f"fock() with {type(w).__name__} "
+                                  "integrals is not ported yet")
+    # flat pair list: two-center Coulomb on the diagonal blocks
+    # (fock.py:80-110) and exchange on the pair blocks (fock.py:117-131)
+    dsum = torch.zeros_like(Pd).index_add(
+        1, iu, w_coulomb_i(w, Pd[:, ju])).index_add(
+        1, ju, w_coulomb_j(w, Pd[:, iu]))
+    x = -0.5 * w_exchange(w, Pg[:, iu, ju])
+    F[:, idx, idx] += tmp + dsum
+    F[:, iu, ju] += x
+    F[:, ju, iu] += x.transpose(-1, -2)
+    return grid_to_mat(F)

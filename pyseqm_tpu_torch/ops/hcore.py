@@ -1,13 +1,16 @@
-"""Core Hamiltonian assembly on the class-segmented dense layout.
+"""Core Hamiltonian assembly and two-electron integrals.
 
-PyTorch counterpart of the main-path part of ``pyseqm_tpu/ops/hcore.py``
-(cf. the reference hcore, seqm/seqm_functions/hcore.py:6-167):
-``atom_multipoles``, ``dense_pair_geometry`` and ``hcore_dense_split`` with
-the core Hamiltonian returned as the static packed matrix.
+PyTorch counterpart of ``pyseqm_tpu/ops/hcore.py`` (cf. the reference
+hcore, seqm/seqm_functions/hcore.py:6-167): ``atom_multipoles``, the flat
+pair-list ``hcore`` (optionally placing its integrals on the grid),
+``dense_pair_geometry``, the ordered-pair ``hcore_dense`` for large
+molecules and the class-segmented ``hcore_dense_split``, whose core
+Hamiltonian comes back as the static packed matrix or as the block grid.
+The class-segmented flat ``hcore_split`` is not ported yet.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -16,9 +19,10 @@ from ..system import System
 from .matrix import assemble_packed_mat
 from .multipole import dd_qq, rho1_additive, rho2_additive
 from .overlap import diatom_overlap, diatom_overlap_hh, diatom_overlap_xh
-from .tetci import (WPackGrid, WPackGridSplit, _core_block, frame_matrix,
-                    local_frame_integrals, local_frame_integrals_hh,
-                    pair_w_xh)
+from .tetci import (WPack, WPackGrid, WPackGridSplit, _core_block,
+                    frame_matrix, local_frame_integrals,
+                    local_frame_integrals_hh, pair_w_pack, pair_w_xh,
+                    to_grid)
 
 
 def atom_multipoles(const: Constants, species, p: Dict[str, torch.Tensor]):
@@ -50,6 +54,72 @@ def atom_multipoles(const: Constants, species, p: Dict[str, torch.Tensor]):
     return {"dd": dd, "qq": qq, "rho0": rho0, "rho1": rho1, "rho2": rho2}
 
 
+def _diag_add(blk, d0, dp):
+    """blk (..., 4, 4) + diag(d0, dp, dp, dp)."""
+    return blk + torch.diag_embed(torch.stack([d0, dp, dp, dp], dim=-1))
+
+
+def hcore(const: Constants, sys: System, p: Dict[str, torch.Tensor],
+          dense_grid: bool = False, precise_overlap: bool = True
+          ) -> Tuple[torch.Tensor, Union[WPack, WPackGrid]]:
+    """Core Hamiltonian block grid and two-electron integrals on the flat
+    (i < j) pair list.
+
+    Returns M (nmol, A, A, 4, 4), the symmetric core Hamiltonian grid (eV),
+    and the compact integrals: WPack (ri (nmol, NP, 22), U (nmol, NP, 4,
+    4)), or with ``dense_grid`` the same placed on the ordered grid
+    (WPackGrid, tetci.to_grid), so the SCF's Fock builds need no scatters.
+    """
+    nmol, A = sys.species.shape
+    iu, ju = sys.pair_i, sys.pair_j
+    am, pm = sys.atom_mask, sys.pair_mask
+
+    # ---- overlap x resonance (off-diagonal blocks) ----
+    zeta = torch.stack([p["zeta_s"], p["zeta_p"]], dim=-1)  # (nmol, A, 2)
+    ov_mask = pm & (sys.rij <= OVERLAP_CUTOFF)
+    # evaluate masked-out pairs at a harmless rij: beyond the cutoff the
+    # r^5 prefactors times the clamped B integrals overflow f32 in the
+    # backward
+    rij_ov = torch.where(ov_mask, sys.rij, torch.ones_like(sys.rij))
+    di = diatom_overlap(const.qn_int[sys.zi], const.qn_int[sys.zj], sys.xij,
+                        rij_ov, zeta[:, iu], zeta[:, ju],
+                        precise=precise_overlap)
+    di = torch.where(ov_mask[..., None, None], di, torch.zeros_like(di))
+    bi = torch.stack([p["beta_s"], p["beta_p"], p["beta_p"], p["beta_p"]],
+                     dim=-1)                                 # (nmol, A, 4)
+    off = di * 0.5 * (bi[:, iu, :, None] + bi[:, ju, None, :])
+
+    # ---- two-electron two-center integrals (compact representation) ----
+    mp = atom_multipoles(const, sys.species, p)
+    w, e1b, e2a = pair_w_pack(
+        sys.rij, sys.xij, const.tore[sys.zi], const.tore[sys.zj],
+        mp["dd"][:, iu], mp["dd"][:, ju], mp["qq"][:, iu], mp["qq"][:, ju],
+        mp["rho0"][:, iu], mp["rho0"][:, ju],
+        mp["rho1"][:, iu], mp["rho1"][:, ju],
+        mp["rho2"][:, iu], mp["rho2"][:, ju])
+    z4 = lambda t: torch.zeros_like(t)                       # noqa: E731
+    w = WPack(ri=torch.where(pm[..., None], w.ri, z4(w.ri)), U=w.U)
+    e1b = torch.where(pm[..., None, None], e1b, z4(e1b))
+    e2a = torch.where(pm[..., None, None], e2a, z4(e2a))
+
+    # ---- diagonal blocks: U_ss/U_pp + summed electron-core attraction ----
+    zA = torch.zeros_like(p["U_ss"])
+    dblk = torch.diag_embed(torch.stack(
+        [torch.where(am, p["U_ss"], zA)] + 3 * [torch.where(am, p["U_pp"],
+                                                            zA)], dim=-1))
+    dblk = dblk.index_add(1, iu, e1b).index_add(1, ju, e2a)
+
+    # ---- assemble the symmetric grid ----
+    M = off.new_zeros((nmol, A, A, 4, 4))
+    idx = torch.arange(A, device=off.device)
+    M[:, idx, idx] = dblk
+    M[:, iu, ju] = off
+    M[:, ju, iu] = off.transpose(-1, -2)
+    if dense_grid:
+        return M, to_grid(w, A, iu, ju)
+    return M, w
+
+
 def dense_pair_geometry(sys: System, pair_outer_cutoff: float):
     """Shared (nmol, A, A) ordered-pair geometry: dvec[n, i, j] = x_j - x_i,
     dist in Angstrom, pm the off-diagonal valid-pair mask (atom masks, no
@@ -68,34 +138,9 @@ def dense_pair_geometry(sys: System, pair_outer_cutoff: float):
     return dvec, dist, pm
 
 
-def _diag_add(blk, d0, dp):
-    """blk (..., 4, 4) + diag(d0, dp, dp, dp)."""
-    return blk + torch.diag_embed(torch.stack([d0, dp, dp, dp], dim=-1))
-
-
-def hcore_dense_split(
-    const: Constants,
-    sys: System,
-    p: Dict[str, torch.Tensor],
-    K: int,
-    packed_m: int,
-    pair_outer_cutoff: float = 1.0e10,
-    precise_overlap: bool = True,
-) -> Tuple[torch.Tensor, WPackGridSplit]:
-    """Class-segmented gather-free core Hamiltonian and integrals.
-
-    Keyed on the batch-max heavy count K: the [0:K, 0:K] ordered sub-grid
-    runs the full 22-integral machinery (with qn-swapped overlap cells: a
-    molecule with fewer than K heavies has hydrogens inside the block), the
-    [0:K, K:A] block the 4-integral X-H class (column atoms are s-only in
-    every molecule by the descending-Z sort), the [K:A, K:A] block the
-    scalar (ss|ss).  M comes back as the (nmol, packed_m, packed_m) static
-    packed matrix (packed_m = density.packed_solver_size(K, A)).
-    """
-    nmol, A = sys.species.shape
-    AH = A - K
-    am = sys.atom_mask
-
+def _dense_cells(sys: System, pair_outer_cutoff: float):
+    """(pm, rij in Bohr, xij, overlap mask, rij for the overlap) on the
+    ordered grid; masked cells get rij = 1 and the z axis."""
     dvec, dist, pm = dense_pair_geometry(sys, pair_outer_cutoff)
     one = torch.ones_like(dist)
     rij = torch.where(pm, dist * LENGTH_CONVERSION_FACTOR, one)
@@ -104,8 +149,115 @@ def hcore_dense_split(
     ov_mask = pm & (rij <= OVERLAP_CUTOFF)
     # sanitize rij beyond the overlap cutoff: the r^5 prefactors times the
     # clamped B integrals overflow f32 in the backward there
-    rij_ov = torch.where(ov_mask, rij, one)
+    return pm, rij, xij, ov_mask, torch.where(ov_mask, rij, one)
 
+
+def _xx_cells(const, sys, p, mp, rij, xij, pm, ov_mask, rij_ov, s,
+              precise_overlap):
+    """Full 22-integral machinery on the ordered sub-grid [s, s]: (off
+    (nmol, n, n, 4, 4) overlap x resonance, with qn-swapped cells, ri,
+    U, the row-summed electron-core blocks (nmol, n, 4, 4))."""
+    nmol = sys.species.shape[0]
+    qn = const.qn_int[sys.species]
+    zeta = torch.stack([p["zeta_s"], p["zeta_p"]], dim=-1)   # (nmol, A, 2)
+    bi_full = torch.stack([p["beta_s"], p["beta_p"], p["beta_p"],
+                           p["beta_p"]], dim=-1)             # (nmol, A, 4)
+    tore = const.tore[sys.species]
+    n = qn[:, s].shape[1]
+    row = lambda v: v[:, s, None]                           # noqa: E731
+    col = lambda v: v[:, None, s]                           # noqa: E731
+    z4 = lambda t: torch.zeros_like(t)                       # noqa: E731
+
+    # overlap blocks want the heavier atom first: cells with qn_i < qn_j
+    # swap roles and transpose the block
+    qni = qn[:, s, None].expand(nmol, n, n)
+    qnj = qn[:, None, s].expand(nmol, n, n)
+    swap = qni < qnj
+    z_i = zeta[:, s, None, :].expand(nmol, n, n, 2)
+    z_j = zeta[:, None, s, :].expand(nmol, n, n, 2)
+    za = torch.where(swap[..., None], z_j, z_i)
+    zb = torch.where(swap[..., None], z_i, z_j)
+    xc = xij[:, s, s]
+    xeff = torch.where(swap[..., None], -xc, xc)
+    di = diatom_overlap(torch.maximum(qni, qnj), torch.minimum(qni, qnj),
+                        xeff, rij_ov[:, s, s], za, zb,
+                        precise=precise_overlap)
+    di = torch.where(swap[..., None, None], di.transpose(-1, -2), di)
+    di = torch.where(ov_mask[:, s, s][..., None, None], di, z4(di))
+    off = di * 0.5 * (bi_full[:, s, None, :, None]
+                      + bi_full[:, None, s, None, :])
+
+    pmc = pm[:, s, s]
+    ri, core_a, _ = local_frame_integrals(
+        rij[:, s, s], row(tore), col(tore),
+        row(mp["dd"]), col(mp["dd"]), row(mp["qq"]), col(mp["qq"]),
+        row(mp["rho0"]), col(mp["rho0"]), row(mp["rho1"]), col(mp["rho1"]),
+        row(mp["rho2"]), col(mp["rho2"]))
+    ri = torch.where(pmc[..., None], ri, z4(ri))
+    U = frame_matrix(xc)
+    e1b = _core_block(U, core_a)
+    # each ordered cell (i, j) is "electron on i, core of j": the row sum
+    # covers both of the flat path's e1b/e2a halves
+    dblk = torch.where(pmc[..., None, None], e1b, z4(e1b)).sum(dim=2)
+    return off, ri, U, dblk
+
+
+def _with_diag_cells(off, dblk):
+    """The (nmol, n, n, 4, 4) cells ``off`` with the diagonal cells
+    replaced by dblk (nmol, n, 4, 4)."""
+    n = off.shape[1]
+    eye = torch.eye(n, dtype=torch.bool, device=off.device)
+    return torch.where(eye[None, :, :, None, None], dblk[:, :, None], off)
+
+
+def hcore_dense(const: Constants, sys: System, p: Dict[str, torch.Tensor],
+                pair_outer_cutoff: float = 1.0e10,
+                precise_overlap: bool = True
+                ) -> Tuple[torch.Tensor, WPackGrid]:
+    """Gather-free ordered-pair core Hamiltonian for large molecules.
+
+    Every pairwise quantity is built on the full ordered (nmol, A, A) grid
+    by row/column broadcasting of per-atom arrays, both (i, j) and (j, i)
+    evaluated; each cell computes its own (ri, U) with the bra on the row
+    atom, which is WPackGrid's contract.  Returns (M (nmol, A, A, 4, 4),
+    WPackGrid); M matches hcore()'s grid.
+    """
+    am = sys.atom_mask
+    pm, rij, xij, ov_mask, rij_ov = _dense_cells(sys, pair_outer_cutoff)
+    mp = atom_multipoles(const, sys.species, p)
+    off, ri, U, dblk = _xx_cells(const, sys, p, mp, rij, xij, pm, ov_mask,
+                                 rij_ov, slice(None), precise_overlap)
+    zA = torch.zeros_like(p["U_ss"])
+    dblk = _diag_add(dblk, torch.where(am, p["U_ss"], zA),
+                     torch.where(am, p["U_pp"], zA))
+    return _with_diag_cells(off, dblk), WPackGrid(rig=ri, ug=U)
+
+
+def hcore_dense_split(
+    const: Constants,
+    sys: System,
+    p: Dict[str, torch.Tensor],
+    K: int,
+    packed_m: Optional[int] = None,
+    pair_outer_cutoff: float = 1.0e10,
+    precise_overlap: bool = True,
+) -> Tuple[torch.Tensor, WPackGridSplit]:
+    """Class-segmented gather-free core Hamiltonian and integrals.
+
+    Keyed on the batch-max heavy count K: the [0:K, 0:K] ordered sub-grid
+    runs hcore_dense's full 22-integral machinery (with qn-swapped overlap
+    cells: a molecule with fewer than K heavies has hydrogens inside the
+    block), the [0:K, K:A] block the 4-integral X-H class (column atoms are
+    s-only in every molecule by the descending-Z sort), the [K:A, K:A]
+    block the scalar (ss|ss).  With ``packed_m`` (=
+    density.packed_solver_size(K, A)) M comes back as the (nmol, packed_m,
+    packed_m) static packed matrix, assembled by block concatenation;
+    without it as the (nmol, A, A, 4, 4) block grid.
+    """
+    nmol, A = sys.species.shape
+    AH = A - K
+    am = sys.atom_mask
+    pm, rij, xij, ov_mask, rij_ov = _dense_cells(sys, pair_outer_cutoff)
     qn = const.qn_int[sys.species]
     zeta = torch.stack([p["zeta_s"], p["zeta_p"]], dim=-1)   # (nmol, A, 2)
     tore = const.tore[sys.species]
@@ -118,37 +270,9 @@ def hcore_dense_split(
 
     # ---- XX sub-grid [0:K, 0:K]: full ordered cells ----
     sH = slice(0, K)
-    qni = qn[:, sH, None].expand(nmol, K, K)
-    qnj = qn[:, None, sH].expand(nmol, K, K)
-    swap = qni < qnj
-    z_i = zeta[:, sH, None, :].expand(nmol, K, K, 2)
-    z_j = zeta[:, None, sH, :].expand(nmol, K, K, 2)
-    za = torch.where(swap[..., None], z_j, z_i)
-    zb = torch.where(swap[..., None], z_i, z_j)
-    xij_xx = xij[:, sH, sH]
-    xeff = torch.where(swap[..., None], -xij_xx, xij_xx)
-    di = diatom_overlap(torch.maximum(qni, qnj), torch.minimum(qni, qnj),
-                        xeff, rij_ov[:, sH, sH], za, zb,
-                        precise=precise_overlap)
-    di = torch.where(swap[..., None, None], di.transpose(-1, -2), di)
-    di = torch.where(ov_mask[:, sH, sH][..., None, None], di, z4(di))
-    beta_xx = 0.5 * (bi_full[:, sH, None, :, None]
-                     + bi_full[:, None, sH, None, :])
-    off_xx = di * beta_xx
-
-    pm_xx = pm[:, sH, sH]
-    ri_xx, core_a, _ = local_frame_integrals(
-        rij[:, sH, sH], row(tore, sH), col(tore, sH),
-        row(mp["dd"], sH), col(mp["dd"], sH),
-        row(mp["qq"], sH), col(mp["qq"], sH),
-        row(mp["rho0"], sH), col(mp["rho0"], sH),
-        row(mp["rho1"], sH), col(mp["rho1"], sH),
-        row(mp["rho2"], sH), col(mp["rho2"], sH))
-    ri_xx = torch.where(pm_xx[..., None], ri_xx, z4(ri_xx))
-    U_xx = frame_matrix(xij_xx)
-    e1b = _core_block(U_xx, core_a)
-    e1b = torch.where(pm_xx[..., None, None], e1b, z4(e1b))
-    dblk_h = e1b.sum(dim=2)                             # (nmol, K, 4, 4)
+    off_xx, ri_xx, U_xx, dblk_h = _xx_cells(const, sys, p, mp, rij, xij, pm,
+                                            ov_mask, rij_ov, sH,
+                                            precise_overlap)
 
     # ---- XH block [0:K, K:A]: 4-integral class, s-only columns ----
     sL = slice(K, A)
@@ -191,16 +315,20 @@ def hcore_dense_split(
     # ordered row sum covers both electron/core orientations
     dl00 = dl00 + (-col(tore, sL) * whh).sum(dim=2)
 
-    # ---- assemble M in the static packed layout ----
+    # ---- assemble M ----
     zK = torch.zeros_like(p["U_ss"][:, sH])
-    uss = torch.where(am[:, sH], p["U_ss"][:, sH], zK)
-    upp = torch.where(am[:, sH], p["U_pp"][:, sH], zK)
-    dblk_h = _diag_add(dblk_h, uss, upp)
+    dblk_h = _diag_add(dblk_h, torch.where(am[:, sH], p["U_ss"][:, sH], zK),
+                       torch.where(am[:, sH], p["U_pp"][:, sH], zK))
     dl00 = dl00 + torch.where(am[:, sL], p["U_ss"][:, sL],
                               torch.zeros_like(dl00))
-    eyeK = torch.eye(K, dtype=torch.bool, device=dblk_h.device)
-    xx_grid = torch.where(eyeK[None, :, :, None, None], dblk_h[:, :, None],
-                          off_xx)
-    Mp = assemble_packed_mat(xx_grid, off_xh, off_hh, dl00, packed_m)
+    xx_grid = _with_diag_cells(off_xx, dblk_h)
     w_out = WPackGridSplit(xx=WPackGrid(rig=ri_xx, ug=U_xx), xh=wxh, hh=whh)
-    return Mp, w_out
+    if packed_m is not None:
+        return (assemble_packed_mat(xx_grid, off_xh, off_hh, dl00, packed_m),
+                w_out)
+    M = off_xx.new_zeros((nmol, A, A, 4, 4))
+    M[:, sH, sH] = xx_grid
+    M[:, sH, sL, :, 0] = off_xh
+    M[:, sL, sH, 0, :] = off_xh.transpose(1, 2)
+    M[:, sL, sL, 0, 0] = torch.diagonal_scatter(off_hh, dl00, dim1=1, dim2=2)
+    return M, w_out

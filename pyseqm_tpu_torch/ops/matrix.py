@@ -16,6 +16,22 @@ def grid_to_mat(g):
     return g.transpose(2, 3).reshape(nmol, 4 * A, 4 * A)
 
 
+def mat_to_grid(m, A):
+    nmol = m.shape[0]
+    return m.reshape(nmol, A, 4, A, 4).transpose(2, 3)
+
+
+def diag_blocks(m, A):
+    """(nmol, 4A, 4A) -> (nmol, A, 4, 4) diagonal atom blocks."""
+    return torch.diagonal(mat_to_grid(m, A), dim1=1, dim2=2).permute(
+        0, 3, 1, 2)
+
+
+def pair_blocks(m, A, iu, ju):
+    """(nmol, 4A, 4A) -> (nmol, NP, 4, 4) upper-triangle atom blocks."""
+    return mat_to_grid(m, A)[:, iu, ju]
+
+
 def assemble_packed_mat(xx_grid, xh_col, hh, hh_diag, n_st):
     """Symmetric matrix in the static packed layout from its class blocks.
 

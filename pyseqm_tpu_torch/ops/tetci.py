@@ -15,9 +15,10 @@ two_elec_two_center_int.py:56-878):
 
 The Fock contractions never materialize w: a 4x4 density block is rotated
 into the local frame (U^T X U), contracted against T and the 22 local
-integrals, and rotated back (U y U^T).  The JAX package unrolls these into
-elementwise ops for the TPU's lane layout; here they are small batched
-matrix products and one contraction with the (16, 22*16) constant.
+integrals, and rotated back (U y U^T).  That apply is kernel K3 on a card
+(ops/wapply_kernel.py, csrc/wapply.cu); its plain version, small batched
+matrix products and one contraction with the (16, 22*16) constant, runs
+on the CPU.
 
 Orbital order, local frame: (s, p_sigma, p_pi, p_pi*).
 Orbital order, molecular frame: (s, p_x, p_y, p_z).
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from ..constants import EV
+from .wapply_kernel import w_apply
 
 
 # ------------------------------------------------------------------
@@ -235,17 +237,6 @@ def _ri_expansion_table() -> np.ndarray:
     return T
 
 
-@functools.lru_cache(maxsize=None)
-def _t_contract(perm, dtype, device) -> torch.Tensor:
-    """(16, 22*16) matrix C with y[f] = sum_r ri[r] (Xloc @ C)[r, f]:
-    T permuted to (r, free1, free2, con1, con2) and laid out as
-    (con1*4+con2, r*16 + free1*4+free2).  Cached per device, so the
-    host-to-device copy happens once."""
-    T = _ri_expansion_table().transpose((0,) + perm).reshape(22, 16, 16)
-    C = np.ascontiguousarray(T.transpose(2, 0, 1).reshape(16, 22 * 16))
-    return torch.as_tensor(C, dtype=dtype, device=device)
-
-
 def frame_matrix(xij):
     """Per-pair AO frame transform U (..., 4, 4).
 
@@ -289,15 +280,10 @@ class WPack(NamedTuple):
 
 def _w_apply(pack: WPack, X, perm):
     """y[f1, f2] = sum w_perm[f1, f2, c1, c2] X[c1, c2] for 4x4 blocks X,
-    with w never materialized (rotate in, contract with T, rotate out)."""
-    U = pack.U
-    Xloc = _rot_to_local(U, X)
-    batch = torch.broadcast_shapes(Xloc.shape[:-2], pack.ri.shape[:-1])
-    C = _t_contract(perm, X.dtype, X.device)
-    Z = (Xloc.reshape(Xloc.shape[:-2] + (1, 16)) @ C)    # (..., 1, 352)
-    Z = Z.reshape(Z.shape[:-2] + (22, 16))
-    y = (pack.ri[..., None, :] @ Z).reshape(batch + (4, 4))
-    return _rot_from_local(U, y)
+    with w never materialized: kernel K3 on a card, its plain version (the
+    contraction as small matrix products) on the CPU
+    (ops/wapply_kernel.py)."""
+    return w_apply(pack.ri, pack.U, X, perm)
 
 
 def w_coulomb_i(pack: WPack, pdiag_j):
@@ -305,9 +291,44 @@ def w_coulomb_i(pack: WPack, pdiag_j):
     return _w_apply(pack, pdiag_j, (1, 2, 3, 4))
 
 
+def w_coulomb_j(pack: WPack, pdiag_i):
+    """sum_ab w[ab,cd] Pdiag_i[ab] -> (..., 4, 4) added to atom j's block."""
+    return _w_apply(pack, pdiag_i, (3, 4, 1, 2))
+
+
 def w_exchange(pack: WPack, p_pair):
     """sum_bd w[ab,cd] P_pair[bd] -> (..., 4, 4) (a,c block)."""
     return _w_apply(pack, p_pair, (1, 3, 2, 4))
+
+
+def rotate_w(ri, xij, U=None):
+    """Rotate local integrals to the molecular frame: (..., 4, 4, 4, 4)."""
+    T = torch.as_tensor(_ri_expansion_table(), dtype=ri.dtype,
+                        device=ri.device)
+    RI = torch.einsum('...r,rklmn->...klmn', ri, T)
+    if U is None:
+        U = frame_matrix(xij)
+    W = torch.einsum('...ak,...klmn->...almn', U, RI)
+    W = torch.einsum('...bl,...almn->...abmn', U, W)
+    W = torch.einsum('...cm,...abmn->...abcn', U, W)
+    return torch.einsum('...dn,...abcn->...abcd', U, W)
+
+
+def rotate_core(core, xij):
+    """Negated symmetric e1b/e2a block: e[a,b] = -U[a,k] U[b,l] C[k,l]."""
+    return _core_block(frame_matrix(xij), core)
+
+
+def assemble_w(pack: WPack) -> torch.Tensor:
+    """Materialize the full (..., 4, 4, 4, 4) integral tensor (tests only)."""
+    return rotate_w(pack.ri, None, U=pack.U)
+
+
+# bra<->ket swap permutation of the 22 local integrals: w_ji = w_ij^T
+# (transpose over the (ab),(cd) index groups) equals the rotation of the
+# relabeled locals with the same frame U
+RI_SWAP = np.array([0, 4, 10, 11, 1, 5, 6, 12, 13, 14,
+                    2, 3, 7, 8, 9, 15, 17, 16, 18, 19, 20, 21])
 
 
 class WPackGrid(NamedTuple):
@@ -316,6 +337,28 @@ class WPackGrid(NamedTuple):
     its frame."""
     rig: torch.Tensor   # (nmol, A, A, 22)
     ug: torch.Tensor    # (nmol, A, A, 4, 4)
+
+
+def to_grid(pack: WPack, A: int, iu, ju) -> WPackGrid:
+    """Flat (i < j) integrals placed on the ordered grid: (i, j) as given,
+    (j, i) with the bra/ket-swapped locals and the same frame; diagonal
+    cells zero.  (A diagonal cell's U = 0 breaks the frame structure K3
+    assumes; with ri = 0 there its apply is 0 either way, and its
+    cotangents fall on constants.)"""
+    nmol = pack.ri.shape[0]
+    swap = torch.as_tensor(RI_SWAP, device=pack.ri.device)
+    rig = pack.ri.new_zeros((nmol, A, A, 22))
+    rig[:, iu, ju] = pack.ri
+    rig[:, ju, iu] = pack.ri[..., swap]
+    ug = pack.U.new_zeros((nmol, A, A, 4, 4))
+    ug[:, iu, ju] = pack.U
+    ug[:, ju, iu] = pack.U
+    return WPackGrid(rig=rig, ug=ug)
+
+
+def from_grid(wg: WPackGrid, iu, ju) -> WPack:
+    """The flat (i < j) WPack of grid-resident integrals (one gather)."""
+    return WPack(ri=wg.rig[:, iu, ju], U=wg.ug[:, iu, ju])
 
 
 def _local_matrix(c00, c01, c11, c22):
@@ -355,6 +398,28 @@ def pair_w_xh(rij, xij, tore_i, tore_j, da, qa, rho0a, rho0b, rho1a, rho2a):
     e1b = -tore_j[..., None, None] * wblk
     e2a_ss = -tore_i * ri4[..., 0]
     return wblk, e1b, e2a_ss
+
+
+def pair_w_pack(rij, xij, tore_i, tore_j, da, db, qa, qb,
+                rho0a, rho0b, rho1a, rho1b, rho2a, rho2b):
+    """Flat pair pipeline: (WPack, e1b, e2a), e1b the electron on i
+    attracted by the core of j, e2a the mirror."""
+    ri, core_a, core_b = local_frame_integrals(
+        rij, tore_i, tore_j, da, db, qa, qb,
+        rho0a, rho0b, rho1a, rho1b, rho2a, rho2b)
+    U = frame_matrix(xij)
+    return WPack(ri=ri, U=U), _core_block(U, core_a), _core_block(U, core_b)
+
+
+def two_center_integrals(rij, xij, tore_i, tore_j, da, db, qa, qb,
+                         rho0a, rho0b, rho1a, rho1b, rho2a, rho2b):
+    """Full pipeline to the molecular frame: (w (..., 4,4,4,4), e1b, e2a),
+    w[ab,cd] = (mu_a nu_b on i | la_c si_d on j) (tests only)."""
+    ri, core_a, core_b = local_frame_integrals(
+        rij, tore_i, tore_j, da, db, qa, qb,
+        rho0a, rho0b, rho1a, rho1b, rho2a, rho2b)
+    return (rotate_w(ri, xij), rotate_core(core_a, xij),
+            rotate_core(core_b, xij))
 
 
 class WPackGridSplit(NamedTuple):

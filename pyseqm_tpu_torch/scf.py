@@ -1,8 +1,10 @@
-"""SCF engine on the static packed layout: converger 2 + backward mode 0.
+"""SCF engine: converger 2 + backward mode 0.
 
-PyTorch counterpart of the packed part of ``pyseqm_tpu/scf.py`` (cf. the
-reference scf_loop.py:32-806).  Each iteration's density comes from the
-packed eigensolver (``sym_eig``, the default) or SP2 (``use_sp2``).
+PyTorch counterpart of ``pyseqm_tpu/scf.py`` (cf. the reference
+scf_loop.py:32-806), on the full (nmol, 4A, 4A) layout with the block-grid
+Fock build (``fock``) and on the static packed layout
+(``fock_packed_split``).  Each iteration's density comes from the
+eigensolver (``sym_eig``, the default) or SP2 (``use_sp2``).
 Converger 2: two direct steps, one
 adaptive-mixing step, then Pulay DIIS.  The fixed point runs as a Python
 loop over masked batched updates: converged molecules stop changing but
@@ -27,7 +29,7 @@ import torch
 
 from .constants import Constants
 from .ops.density import sp2, static_pack_mat, sym_eig
-from .ops.fock import fock_packed_split
+from .ops.fock import fock, fock_packed_split
 from .ops.matrix import grid_to_mat
 from .system import System
 
@@ -47,6 +49,14 @@ class SCFConfig:
     converger: Tuple = (2,)             # adaptive mixing + DIIS
     use_sp2: bool = False
     sp2_eps: float = 1.0e-4
+    # refine Gershgorin spectral bounds by Gelfand squaring before SP2
+    # (fewer iterations and less amplified rounding noise)
+    sp2_tight_bounds: bool = False
+    # XL-BOMD on the full layout only: re-solve the worst frac of
+    # molecules (scored by ||D - P|| against the propagated field) with the
+    # exact degeneracy-aware eigh after SP2 (ops/density.py eigh_rescue).
+    # 0 = off.  The SCF ignores it; the packed XL route raises on it.
+    sp2_rescue: float = 0.0
     max_iter: int = 1000
     raise_on_forward_failure: bool = False
     # plain adaptive-mixing iterations run on all molecules after the
@@ -57,9 +67,16 @@ class SCFConfig:
     # fractional occupations across a degenerate Fermi level
     # (cf. diag.CHECK_DEGENERACY, diag.py:7,79-98)
     check_degeneracy: bool = False
+    # compact-orbital size of the density solves on the full layout
+    # (= packed_orbital_size(species), >= every molecule's norb; 884-atom
+    # alkane: 1792 instead of 3536).  None = full 4A
+    pack_orbitals: Optional[int] = None
     # max heavy-atom count K of the static packed layout
     # (= packed_heavy_count(species))
     pack_heavy: Optional[int] = None
+    # The JAX package's sp2_precision, sp2_dots, sort_packing and panel_out
+    # are TPU knobs and not ported: with TF32 off every float32 product
+    # here is full float32.
 
 
 def init_density(const: Constants, sys: System) -> torch.Tensor:
@@ -106,25 +123,55 @@ class _State:
     EMAT: torch.Tensor
 
 
+def _make_density(sys: System, cfg: SCFConfig,
+                  packed: Optional[Tuple[int, int]]):
+    """The density solve F -> P of one SCF iteration in the run layout."""
+    if packed is not None:
+        K = packed[0]
+        if cfg.use_sp2:
+            return lambda F: sp2(sys, F, cfg.sp2_eps, cfg.sp2_tight_bounds,
+                                 pack_heavy=K, prepacked=True)
+        return lambda F: sym_eig(sys, F,
+                                 check_degeneracy=cfg.check_degeneracy,
+                                 pack_heavy=K, prepacked=True)[1]
+    if cfg.use_sp2:
+        return lambda F: sp2(sys, F, cfg.sp2_eps, cfg.sp2_tight_bounds,
+                             pack_n=cfg.pack_orbitals,
+                             pack_heavy=cfg.pack_heavy)
+    return lambda F: sym_eig(sys, F, check_degeneracy=cfg.check_degeneracy,
+                             pack_n=cfg.pack_orbitals,
+                             pack_heavy=cfg.pack_heavy)[1]
+
+
+def _layout_fock(sys: System, packed: Optional[Tuple[int, int]]):
+    """(fock_of(M, w, p, P), H_of(M)): the Fock builder and the core
+    Hamiltonian matrix of the run layout.  ``packed=(K, n_st)``: M is the
+    packed core matrix and every iterate lives at n_st; otherwise M is the
+    (nmol, A, A, 4, 4) grid and the iterates are (nmol, 4A, 4A)."""
+    if packed is None:
+        return (lambda M, w, p, P: fock(sys, P, M, w, p),
+                lambda M: grid_to_mat(M))
+    K, n_st = packed
+    return (lambda M, w, p, P: fock_packed_split(sys, P, M, w, p, K, n_st),
+            lambda M: M)
+
+
 @torch.no_grad()
 def scf_iterate(sys: System, M: torch.Tensor, w, p: Dict[str, torch.Tensor],
-                P0: torch.Tensor, cfg: SCFConfig, packed: Tuple[int, int]
+                P0: torch.Tensor, cfg: SCFConfig,
+                packed: Optional[Tuple[int, int]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run the fixed-point iteration in the static packed layout
-    (``packed=(K, n_st)``: M the packed core matrix, P0/P/F/DIIS buffers
-    (nmol, n_st, n_st)); returns (Pconv, notconverged)."""
-    K, n_st = packed
-
-    def density(F):
-        if cfg.use_sp2:
-            return sp2(sys, F, cfg.sp2_eps, pack_heavy=K, prepacked=True)
-        return sym_eig(sys, F, check_degeneracy=cfg.check_degeneracy,
-                       pack_heavy=K, prepacked=True)[1]
+    """Run the fixed-point iteration; returns (Pconv, notconverged).
+    ``packed=(K, n_st)``: the whole loop runs in the static packed layout
+    (M the packed core matrix, P0/P/F/DIIS buffers (nmol, n_st, n_st));
+    otherwise on the full layout (M the block grid)."""
+    density = _make_density(sys, cfg, packed)
+    fock_m, H_of = _layout_fock(sys, packed)
 
     def fock_of(P):
-        return fock_packed_split(sys, P, M, w, p, K, n_st)
+        return fock_m(M, w, p, P)
 
-    H = M
+    H = H_of(M)
     if tuple(cfg.converger) != (2,):
         raise NotImplementedError("only converger (2,) is ported yet")
 
@@ -262,20 +309,19 @@ def scf_solve(const: Constants, sys: System, M: torch.Tensor, w,
               P0: Optional[torch.Tensor] = None,
               packed: Optional[Tuple[int, int]] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """SCF solve in the static packed layout with backward mode 0 (modes
-    1 and 2 are not ported yet).
+    """SCF solve with backward mode 0 (modes 1 and 2 are not ported yet).
 
-    Returns (Pconv (nmol, n_st, n_st), notconverged).  The density is a
-    constant for autograd (Hellmann-Feynman forces); inputs are detached
-    so the fixed-point loop is never recorded.  P0 may be given in either
-    layout.
+    ``packed=(K, n_st)`` runs the fixed point in the static packed layout
+    (M the packed core matrix) and returns Pconv (nmol, n_st, n_st);
+    otherwise M is the block grid and Pconv (nmol, 4A, 4A).  Returns
+    (Pconv, notconverged).  The density is a constant for autograd
+    (Hellmann-Feynman forces); inputs are detached so the fixed-point loop
+    is never recorded.  P0 may be given in either layout.
     """
-    if packed is None:
-        raise NotImplementedError("only the static packed SCF is ported")
     pscf = {k: p[k].detach() for k in SCF_PARAM_NAMES}
     if P0 is None:
         P0 = init_density(const, sys)
-    if P0.shape[-1] != packed[1]:
+    if packed is not None and P0.shape[-1] != packed[1]:
         P0 = static_pack_mat(P0, packed[0], packed[1])
     w0 = type(w)(*[t.detach() if torch.is_tensor(t) else
                    type(t)(*[u.detach() for u in t]) for t in w])

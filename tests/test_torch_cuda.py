@@ -1,7 +1,8 @@
-"""PyTorch port on an NVIDIA GPU: the CUDA SP2 and Jacobi eigh kernels
-against their plain versions and the exact answers, and short float32
-XL-BOMD runs (SP2 and eigh densities) through the kernels against the CPU
-runs of the same inputs.
+"""PyTorch port on an NVIDIA GPU: the CUDA SP2, Jacobi eigh and fused
+two-electron apply kernels against their plain versions (and the exact
+answers where there are any), short float32 XL-BOMD runs (SP2 and eigh
+densities) through the kernels, and the default flat layout's energy and
+force, against the CPU runs of the same inputs.
 
 These tests need the card and skip without one.  They import neither JAX
 nor the JAX package, so they run where only PyTorch is installed:
@@ -15,7 +16,8 @@ import torch
 import pyseqm_tpu_torch as pt
 from pyseqm_tpu_torch.drivers.md import MDConfig
 from pyseqm_tpu_torch.drivers.xlbomd import XLBOMD
-from pyseqm_tpu_torch.ops import eigh_kernel, sp2_kernel
+from pyseqm_tpu_torch.ops import eigh_kernel, sp2_kernel, wapply_kernel
+from pyseqm_tpu_torch.ops.tetci import frame_matrix
 from pyseqm_tpu_torch.scf import SCFConfig
 from pyseqm_tpu_torch.utils.molecules import make_batch
 
@@ -133,3 +135,86 @@ def test_xlbomd_f32_on_card_matches_cpu(cuda, use_sp2):
                                rtol=0, atol=2e-4)
     np.testing.assert_allclose(sg.coordinates.cpu().numpy(),
                                sc.coordinates.numpy(), rtol=0, atol=2e-6)
+
+
+def _wapply_case(C, dtype, device, seed, lead=None):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    lead = (C,) if lead is None else lead
+    mk = lambda *shape: torch.randn(*shape, generator=g,  # noqa: E731
+                                    dtype=torch.float64)
+    x = mk(*lead, 3)
+    U = frame_matrix(x / x.norm(dim=-1, keepdim=True))
+    return [t.to(device=device, dtype=dtype) for t in
+            (5.0 * mk(*lead, 22), U, mk(*lead, 4, 4), mk(*lead, 4, 4))]
+
+
+def _grads(fn, ri, U, X, Yb, perm):
+    leaves = [t.detach().clone().requires_grad_(True) for t in (ri, U, X)]
+    y = fn(*leaves, perm)
+    return (y,) + torch.autograd.grad(y, leaves, Yb)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("perm", [(1, 2, 3, 4), (3, 4, 1, 2), (1, 3, 2, 4)])
+@pytest.mark.parametrize("C", [1001, 40960])
+def test_wapply_kernel_matches_plain(cuda, dtype, perm, C):
+    ri, U, X, Yb = _wapply_case(C, dtype, cuda, C)
+    f0, b0 = wapply_kernel.launches_fwd, wapply_kernel.launches_bwd
+    y, dri, dU, dX = _grads(wapply_kernel.w_apply, ri, U, X, Yb, perm)
+    torch.cuda.synchronize()
+    assert (wapply_kernel.launches_fwd - f0, wapply_kernel.launches_bwd
+            - b0) == (1, 1)
+    ref = _grads(wapply_kernel.w_apply_reference, ri, U, X, Yb, perm)
+    # f32: the bounds of the TPU kernel's own check (tools/wapply_pallas.py
+    # check(): 3e-6 of the largest value); f64: rounding
+    tol = 3.0e-6 if dtype == torch.float32 else 1.0e-12
+    assert (y - ref[0]).abs().max() <= tol * ref[0].abs().max()
+    # the kernel returns dU on the 3x3 block only (U's row 0 and column 0
+    # are structural constants)
+    assert not dU[..., 0, :].any() and not dU[..., 1:, 0].any()
+    for a, b in ((dri, ref[1]), (dU[..., 1:, 1:], ref[2][..., 1:, 1:]),
+                 (dX, ref[3])):
+        assert (a - b).abs().max() <= tol * max(b.abs().max().item(), 1.0)
+
+
+def test_wapply_expanded_x_and_once_differentiable(cuda):
+    # the Coulomb apply of the packed Fock build: X = Pd[:, None] broadcast
+    # over the row atom; its cotangent is reduced back by autograd
+    ri, U, _, Yb = _wapply_case(0, torch.float64, cuda, 3, lead=(64, 5, 5))
+    Xb = _wapply_case(0, torch.float64, cuda, 4, lead=(64, 1, 5))[2]
+    y, dri, dU, dX = _grads(wapply_kernel.w_apply, ri, U, Xb, Yb,
+                            (1, 2, 3, 4))
+    ref = _grads(wapply_kernel.w_apply_reference, ri, U, Xb, Yb,
+                 (1, 2, 3, 4))
+    assert dX.shape == Xb.shape
+    assert (y - ref[0]).abs().max() <= 1e-12 * ref[0].abs().max()
+    assert (dX - ref[3]).abs().max() <= 1e-12 * ref[3].abs().max()
+    leaves = [t.detach().clone().requires_grad_(True) for t in (ri, U, Xb)]
+    out = wapply_kernel.w_apply(*leaves, (1, 3, 2, 4))
+    (g,) = torch.autograd.grad((out * Yb).sum(), leaves[0],
+                               create_graph=True)
+    with pytest.raises(RuntimeError):
+        torch.autograd.grad(g.sum(), leaves[1])
+
+
+def test_default_layout_on_card_matches_cpu(cuda):
+    """Energy and force with the default SCFConfig (flat pair list, K2 at
+    n = 32, K3 in every Fock build and in the backward) on the card against
+    the CPU run of the same float32 inputs."""
+    sp, co = make_batch(12, 8, jitter=0.02, seed=4)
+    out = {}
+    for dev in ("cpu", cuda):
+        const, tables, cfg = pt.build(
+            "AM1", dtype=torch.float32, device=dev,
+            scf=SCFConfig(eps=1.0e-5, converger=(2,)))
+        f0, b0 = wapply_kernel.launches_fwd, wapply_kernel.launches_bwd
+        f, o = pt.force(const, tables, cfg, sp,
+                        torch.tensor(co, dtype=torch.float32, device=dev))
+        out[str(dev)] = (f.cpu(), o.Hf.cpu(), wapply_kernel.launches_fwd
+                         - f0, wapply_kernel.launches_bwd - b0)
+    (fc, hc, lfc, lbc), (fg, hg, lfg, lbg) = out["cpu"], out["cuda"]
+    assert lfc == 0 and lbc == 0 and lfg > 0 and lbg == 3
+    # two f32 runs in different summation orders: the f32 budget of the
+    # f32-vs-f64 tests (1.5e-4 eV, 1e-3 eV/A)
+    np.testing.assert_allclose(hg.numpy(), hc.numpy(), rtol=0, atol=1.5e-4)
+    np.testing.assert_allclose(fg.numpy(), fc.numpy(), rtol=0, atol=1e-3)

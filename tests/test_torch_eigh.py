@@ -37,6 +37,18 @@ def _np(x):
     return np.asarray(x.detach().cpu() if torch.is_tensor(x) else x)
 
 
+def _jax_xl_state(s):
+    """The JAX driver's state holding the port's bootstrap state (the
+    bootstrap is the SCF energy, held to the JAX package by the energy
+    tests); the step is traced and run by JAX from there."""
+    from pyseqm_tpu.drivers.xlbomd import XLBOMDState as JXLBOMDState
+    j = lambda t: jnp.asarray(_np(t))                      # noqa: E731
+    return JXLBOMDState(
+        coordinates=j(s.coordinates), velocities=j(s.velocities),
+        acc=j(s.acc), D=j(s.D), P=j(s.P), Pt=j(s.Pt), E0=j(s.E0),
+        key=jax.random.split(jax.random.PRNGKey(0))[1], step=jnp.asarray(0))
+
+
 def _random_sym(B, n, seed):
     rng = np.random.RandomState(seed)
     A = rng.randn(B, n, n)
@@ -165,9 +177,10 @@ def test_backward_matches_jax_perturbation_vjp(monkeypatch):
     e = np.sort(rng.randn(B, n) * 3.0, axis=-1)
     v, _ = np.linalg.qr(rng.randn(B, n, n))
     e_bar, v_bar = rng.randn(B, n), rng.randn(B, n, n)
-    _, vjp = jax.vjp(lambda dA: jeigh._perturbation_jvp(
-        jnp.asarray(e), jnp.asarray(v), dA), jnp.zeros((B, n, n)))
-    (Aj,) = vjp((jnp.asarray(e_bar), jnp.asarray(v_bar)))
+    (Aj,) = jax.jit(lambda eb, vb: jax.vjp(
+        lambda dA: jeigh._perturbation_jvp(jnp.asarray(e), jnp.asarray(v), dA),
+        jnp.zeros((B, n, n)))[1]((eb, vb)))(jnp.asarray(e_bar),
+                                            jnp.asarray(v_bar))
     At = perturbation_vjp(*(torch.tensor(x) for x in (e, v, e_bar, v_bar)))
     # f64, the transpose of the same linear map
     np.testing.assert_allclose(_np(At), np.asarray(Aj), rtol=0, atol=1e-10)
@@ -195,8 +208,9 @@ def test_backward_matches_jax_perturbation_vjp(monkeypatch):
 
 
 def _systems(sp, co, K):
-    jsys = jmake_system(pq.make_constants(dtype=jnp.float64),
-                        jnp.asarray(sp), jnp.asarray(co), heavy_count=K)
+    jsys = jax.jit(lambda x: jmake_system(
+        pq.make_constants(dtype=jnp.float64), jnp.asarray(sp), x,
+        heavy_count=K))(jnp.asarray(co))
     tsys = make_system(pt.make_constants(dtype=torch.float64, device="cpu"),
                        sp, torch.tensor(co), heavy_count=K)
     return jsys, tsys
@@ -222,11 +236,16 @@ def test_sym_eig_routes_match_jax():
                                 check_degeneracy=True)),
         "pack_heavy": (Ffull, dict(pack_heavy=K)),
         "permutation": (Ffull, dict(check_degeneracy=True)),
+        "pack_n": (Ffull, dict(pack_n=pt.packed_orbital_size(sp, 4))),
     }
+    # every route's JAX reference in one program
+    jref = jax.jit(lambda Fp, Ff: {
+        name: jdens.sym_eig(jsys, Fp if name == "prepacked" else Ff, **kw)
+        for name, (_, kw) in routes.items()})(jnp.asarray(Fpk),
+                                              jnp.asarray(Ffull))
     Ps = {}
     for name, (F, kw) in routes.items():
-        ej, Pj, vj = jax.jit(lambda f: jdens.sym_eig(jsys, f, **kw))(
-            jnp.asarray(F))
+        ej, Pj, vj = jref[name]
         e, P, v, flag = tdens.sym_eig(tsys, torch.tensor(F), with_flag=True,
                                       **kw)
         # f64: torch.linalg.eigh against jnp.linalg.eigh, same prep
@@ -241,17 +260,15 @@ def test_sym_eig_routes_match_jax():
         Ps[name] = _np(P)
     e2, v2, flag = tdens.sym_eig(tsys, torch.tensor(Ffull), eig_only=True,
                                  with_flag=True)
-    ej2, vj2 = jax.jit(lambda f: jdens.sym_eig(jsys, f, eig_only=True))(
-        jnp.asarray(Ffull))
-    np.testing.assert_allclose(_np(e2), np.asarray(ej2), rtol=0, atol=1e-10)
+    # eig_only runs the permutation route: its orbital energies
+    np.testing.assert_allclose(_np(e2), np.asarray(jref["permutation"][0]),
+                               rtol=0, atol=1e-10)
     # the XL eigh branch solves the packed F directly: the same D as the
     # JAX package's unpack -> pack_heavy solve -> pack
     np.testing.assert_allclose(
         np.asarray(jdens.static_pack_mat(jnp.asarray(Ps["pack_heavy"]), K,
                                          n_st)),
         Ps["prepacked"], rtol=0, atol=1e-12)
-    with pytest.raises(NotImplementedError):
-        tdens.sym_eig(tsys, torch.tensor(Ffull), pack_n=16)
 
     # fractional occupations across a degenerate Fermi level
     e = np.sort(rng.randn(6, 12), axis=-1)
@@ -332,6 +349,9 @@ def test_eig_slice_batch96(golden, method):
         np.testing.assert_allclose(_np(getattr(out, name)),
                                    np.asarray(getattr(jout, name)), rtol=0,
                                    atol=1e-9, err_msg=name)
+    # the converged density of the packed eigh SCF (the XL-BOMD bootstrap)
+    np.testing.assert_allclose(_np(out.P), np.asarray(jout.P), rtol=0,
+                               atol=1e-8)
     # per-MO charges of non-degenerate orbitals (sign-free, but a
     # degenerate pair mixes arbitrarily).  The golden ``charge`` is not
     # compared: it holds another convention (the same sum rules, but its
@@ -386,24 +406,20 @@ def test_xlbomd_eigh_trajectory_matches_jax():
     sp, co = make_batch(6, 8, jitter=0.02)
     K = pt.packed_heavy_count(sp)
     scf = dict(eps=1.0e-10, converger=(2,), use_sp2=False, pack_heavy=K)
-    jcfg = pq.SEQMConfig(method="AM1", scf=JSCFConfig(**scf))
-    jc = pq.make_constants(dtype=jnp.float64)
-    jt = pq.load_element_tables("AM1", dtype=jnp.float64)
-    jmd = JXLBOMD(jc, jt, jcfg, JMDConfig(timestep=1.0), k=5)
-    jsp = jnp.asarray(sp)
-    js = jmd.initialize(jsp, jnp.asarray(co),
-                        velocities=jnp.zeros(co.shape, jnp.float64),
-                        initial_force=False)
-    jstep = jax.jit(lambda s: jmd.step(jsp, s))
-    for _ in range(5):
-        js, jobs = jstep(js)
-
     const, tables, cfg = pt.build("AM1", dtype=torch.float64, device="cpu",
                                   scf=SCFConfig(**scf))
     md = XLBOMD(const, tables, cfg, MDConfig(timestep=1.0), k=5)
     s = md.initialize(sp, co, velocities=np.zeros_like(co),
                       initial_force=False)
+    jcfg = pq.SEQMConfig(method="AM1", scf=JSCFConfig(**scf))
+    jc = pq.make_constants(dtype=jnp.float64)
+    jt = pq.load_element_tables("AM1", dtype=jnp.float64)
+    jmd = JXLBOMD(jc, jt, jcfg, JMDConfig(timestep=1.0), k=5)
+    jsp = jnp.asarray(sp)
+    js = _jax_xl_state(s)
+    jstep = jax.jit(lambda s: jmd.step(jsp, s))
     for _ in range(5):
+        js, jobs = jstep(js)
         s, obs = md.step(sp, s)
     # f64: the same integrator and electronic propagation, eigh densities
     for a, b in ((s.coordinates, js.coordinates),

@@ -6,6 +6,7 @@ import os
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -73,8 +74,9 @@ def test_system_fields_match_jax(golden, heavy):
     K = pt.packed_heavy_count(sp) if heavy else None
     charges = np.arange(sp.shape[0]) % 3 - 1
     charges = np.where(charges == 0, 0, 2 * charges)   # even: closed shells
-    js = jmake_system(pq.make_constants(dtype=jnp.float64), jnp.asarray(sp),
-                      jnp.asarray(co), jnp.asarray(charges), heavy_count=K)
+    js = jax.jit(lambda c, q: jmake_system(
+        pq.make_constants(dtype=jnp.float64), jnp.asarray(sp), c, q,
+        heavy_count=K))(jnp.asarray(co), jnp.asarray(charges))
     ts = make_system(pt.make_constants(dtype=torch.float64, device=CPU), sp,
                      torch.tensor(co), charges, heavy_count=K)
     for f in js.__dataclass_fields__:
@@ -125,14 +127,30 @@ def test_build_defaults_to_cuda():
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, pyseqm_tpu_torch, pyseqm_tpu_torch.drivers.xlbomd;"
-            "bad=[m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-            " or m == 'pyseqm_tpu' or m.startswith('pyseqm_tpu.')];"
+    """Every module of the port, and chip_smoke.py, import neither JAX nor
+    the JAX package nor anything under tools/."""
+    code = ("import sys, pkgutil, importlib, pyseqm_tpu_torch, chip_smoke;"
+            "[importlib.import_module(m.name) for m in pkgutil.walk_packages("
+            "pyseqm_tpu_torch.__path__, 'pyseqm_tpu_torch.')];"
+            "bad=[m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'pyseqm_tpu', 'tools', 'wapply_pallas')];"
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+    # and no source line of the port or of chip_smoke.py names them
+    srcs = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(d, f) for d, _, fs in os.walk(os.path.join(
+            REPO, "pyseqm_tpu_torch")) for f in fs if f.endswith(".py")]
+    for path in srcs:
+        with open(path) as fh:
+            for line in fh:
+                words = line.split()
+                if words[:1] in (["import"], ["from"]):
+                    top = words[1].split(".")[0]
+                    assert top not in ("jax", "jaxlib", "pyseqm_tpu",
+                                       "tools"), (path, line)
 
 
 def _pairs(dtype, n=4096, seed=0):

@@ -56,10 +56,9 @@ def _port_overlap(args, dtype, precise, grad=False):
 
 def _jax_overlap(args, dtype, precise):
     qni, qnj, x, r, zi, zj = args
-    return jov.diatom_overlap(jnp.asarray(qni), jnp.asarray(qnj),
-                              jnp.asarray(x, dtype), jnp.asarray(r, dtype),
-                              jnp.asarray(zi, dtype), jnp.asarray(zj, dtype),
-                              precise=precise)
+    return jax.jit(lambda *a: jov.diatom_overlap(*a, precise=precise))(
+        jnp.asarray(qni), jnp.asarray(qnj), jnp.asarray(x, dtype),
+        jnp.asarray(r, dtype), jnp.asarray(zi, dtype), jnp.asarray(zj, dtype))
 
 
 def test_precise_overlap_f32_values():
@@ -133,8 +132,8 @@ def packed_case(golden):
     n_st = pt.packed_solver_size(K, sp.shape[1])
     jc = pq.make_constants(dtype=jnp.float64)
     jt = pq.load_element_tables("AM1", dtype=jnp.float64)
-    jsys = jmake_system(jc, jnp.asarray(sp), jnp.asarray(co), heavy_count=K)
-    jp = jgather(jt, "AM1", jsys.species)
+    jsys, jp = jax.jit(lambda x: (lambda s: (s, jgather(jt, "AM1", s.species)))(
+        jmake_system(jc, jnp.asarray(sp), x, heavy_count=K)))(jnp.asarray(co))
     tc = pt.make_constants(dtype=torch.float64, device=CPU)
     tt = pt.load_element_tables("AM1", device=CPU, dtype=torch.float64)
     tsys = make_system(tc, sp, torch.tensor(co), heavy_count=K)
@@ -169,8 +168,9 @@ def test_fock_packed_split_matches_jax(packed_case):
     rng = np.random.RandomState(5)
     X = rng.randn(c["tM"].shape[0], c["n_st"], c["n_st"]) * 0.3
     P = X + np.swapaxes(X, 1, 2)
-    jF = jfock.fock_packed_split(c["jsys"], jnp.asarray(P), c["jM"], c["jw"],
-                                 c["jp"], c["K"], c["n_st"])
+    jF = jax.jit(lambda s, P, M, w, p: jfock.fock_packed_split(
+        s, P, M, w, p, c["K"], c["n_st"]))(c["jsys"], jnp.asarray(P), c["jM"],
+                                           c["jw"], c["jp"])
     tF = tfock.fock_packed_split(c["tsys"], torch.tensor(P), c["tM"],
                                  c["tw"], c["tp"], c["K"], c["n_st"])
     # f64; the port contracts w with small matrix products where the JAX

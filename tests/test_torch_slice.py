@@ -31,6 +31,18 @@ def _np(x):
     return np.asarray(x.detach().cpu() if torch.is_tensor(x) else x)
 
 
+def _jax_xl_state(s):
+    """The JAX driver's state holding the port's bootstrap state (the
+    bootstrap is the SCF energy, held to the JAX package by the energy
+    tests); the step is traced and run by JAX from there."""
+    from pyseqm_tpu.drivers.xlbomd import XLBOMDState as JXLBOMDState
+    j = lambda t: jnp.asarray(_np(t))                      # noqa: E731
+    return JXLBOMDState(
+        coordinates=j(s.coordinates), velocities=j(s.velocities),
+        acc=j(s.acc), D=j(s.D), P=j(s.P), Pt=j(s.Pt), E0=j(s.E0),
+        key=jax.random.split(jax.random.PRNGKey(0))[1], step=jnp.asarray(0))
+
+
 def _configs(K, **kw):
     scf = dict(eps=1.0e-10, converger=(2,), use_sp2=True, sp2_eps=1.0e-7,
                pack_heavy=K)
@@ -72,24 +84,20 @@ def test_xlbomd_packed_trajectory_matches_jax():
     sp, co = make_batch(6, 8, jitter=0.02)
     K = pt.packed_heavy_count(sp)
     jcfg, scf = _configs(K)
+    const, tables, cfg = pt.build("AM1", dtype=torch.float64, device="cpu",
+                                  scf=SCFConfig(**scf))
+    md = XLBOMD(const, tables, cfg, MDConfig(timestep=1.0), k=5)
+    # the headline bootstrap: one SCF energy, acc starting at zero
+    s = md.initialize(sp, co, velocities=np.zeros_like(co),
+                      initial_force=False)
     jc = pq.make_constants(dtype=jnp.float64)
     jt = pq.load_element_tables("AM1", dtype=jnp.float64)
     jmd = JXLBOMD(jc, jt, jcfg, JMDConfig(timestep=1.0), k=5)
     jsp = jnp.asarray(sp)
-    # the headline bootstrap: one SCF energy, acc starting at zero
-    js = jmd.initialize(jsp, jnp.asarray(co),
-                        velocities=jnp.zeros(co.shape, jnp.float64),
-                        initial_force=False)
+    js = _jax_xl_state(s)
     jstep = jax.jit(lambda s: jmd.step(jsp, s))
     for _ in range(5):
         js, jobs = jstep(js)
-
-    const, tables, cfg = pt.build("AM1", dtype=torch.float64, device="cpu",
-                                  scf=SCFConfig(**scf))
-    md = XLBOMD(const, tables, cfg, MDConfig(timestep=1.0), k=5)
-    s = md.initialize(sp, co, velocities=np.zeros_like(co),
-                      initial_force=False)
-    for _ in range(5):
         s, obs = md.step(sp, s)
     assert s.Pt.shape[-1] < 4 * sp.shape[1]      # the packed electronic state
     # f64, identical integrator and electronic propagation

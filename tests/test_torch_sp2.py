@@ -3,6 +3,7 @@ package's Pallas kernel in interpret mode (the cases of test_kernels.py),
 the wrapper's checks and CPU dispatch, and the f64 packed sp2 against JAX.
 The CUDA kernel itself is held against the plain version in
 test_torch_cuda.py."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -88,13 +89,20 @@ def test_sp2_prepacked_f64_matches_jax():
     rng = np.random.RandomState(6)
     X = rng.randn(sp.shape[0], n_st, n_st)
     F = 3.0 * (X + np.swapaxes(X, 1, 2)) - 20.0 * np.eye(n_st)
-    jsys = jmake_system(pq.make_constants(dtype=jnp.float64),
-                        jnp.asarray(sp), jnp.asarray(co), heavy_count=K)
+    jsys = jax.jit(lambda x: jmake_system(
+        pq.make_constants(dtype=jnp.float64), jnp.asarray(sp), x,
+        heavy_count=K))(jnp.asarray(co))
     tsys = make_system(pt.make_constants(dtype=torch.float64, device="cpu"),
                        sp, torch.tensor(co), heavy_count=K)
-    for eps in (1.0e-5, 1.0e-7):
-        Pj = jdens.sp2(jsys, jnp.asarray(F), eps, pack_heavy=K,
-                       prepacked=True)
+    Ffull = np.asarray(jdens.static_unpack_mat(jnp.asarray(F), K,
+                                               sp.shape[1]))
+    # the three JAX references in one program
+    Pjs = jax.jit(lambda Fp, Ff: [
+        jdens.sp2(jsys, Fp, eps, pack_heavy=K, prepacked=True)
+        for eps in (1.0e-5, 1.0e-7)] + [
+        jdens.sp2(jsys, Ff, 1.0e-7, pack_heavy=K)])(jnp.asarray(F),
+                                                    jnp.asarray(Ffull))
+    for eps, Pj in zip((1.0e-5, 1.0e-7), Pjs):
         P = tdens.sp2(tsys, torch.tensor(F), eps, pack_heavy=K,
                       prepacked=True)
         # f64, the same XLA-path loop (masks, trace refresh every 16
@@ -102,9 +110,7 @@ def test_sp2_prepacked_f64_matches_jax():
         np.testing.assert_allclose(P.numpy(), np.asarray(Pj), rtol=0,
                                    atol=1e-10)
     # the pack_heavy route: full (nmol, 4A, 4A) F in, P out, packed inside
-    Ffull = np.asarray(jdens.static_unpack_mat(jnp.asarray(F), K,
-                                               sp.shape[1]))
-    Pj = jdens.sp2(jsys, jnp.asarray(Ffull), 1.0e-7, pack_heavy=K)
+    Pj = Pjs[2]
     P = tdens.sp2(tsys, torch.tensor(Ffull), 1.0e-7, pack_heavy=K)
     assert P.shape == Ffull.shape
     np.testing.assert_allclose(P.numpy(), np.asarray(Pj), rtol=0, atol=1e-10)
