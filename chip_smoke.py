@@ -561,12 +561,13 @@ def phase_accuracy():
 
 
 class Tap:
-    """Counts the calls of ``module.name`` while active and keeps the
-    tensor arguments of the last call for each matrix size n (a counting
-    wrapper around the package's own function)."""
+    """Counts the calls of ``module.name`` while active and keeps, detached,
+    the tensor arguments of the last call for each key: by default the
+    first 3-D tensor under its matrix size n; with ``key`` given, every
+    tensor argument under ``key(*args)``."""
 
-    def __init__(self, module, name):
-        self.module, self.name = module, name
+    def __init__(self, module, name, key=None):
+        self.module, self.name, self.key = module, name, key
         self.calls, self.last = 0, {}
 
     def __enter__(self):
@@ -574,9 +575,15 @@ class Tap:
 
         def wrapped(*args, **kwargs):
             self.calls += 1
-            mats = [a for a in args if torch.is_tensor(a) and a.dim() == 3]
-            if mats:    # detached: keep the input, not its autograd graph
-                self.last[mats[0].shape[-1]] = mats[0].detach()
+            # detached: keep the input, not its autograd graph
+            if self.key is not None:
+                self.last[self.key(*args)] = tuple(
+                    a.detach() for a in args if torch.is_tensor(a))
+            else:
+                mats = [a for a in args
+                        if torch.is_tensor(a) and a.dim() == 3]
+                if mats:
+                    self.last[mats[0].shape[-1]] = mats[0].detach()
             return self.orig(*args, **kwargs)
         setattr(self.module, self.name, wrapped)
         return self
@@ -915,26 +922,11 @@ def k3_reset():
     wapply_kernel.launches_fwd = wapply_kernel.launches_bwd = 0
 
 
-class K3Tap:
-    """Keeps the operands of the last K3 apply of each perm made while
-    active (a wrapper around tetci's w_apply; detached)."""
-
-    def __init__(self):
-        self.last = {}
-
-    def __enter__(self):
-        from pyseqm_tpu_torch.ops import tetci
-        self.orig = tetci.w_apply
-
-        def wrapped(ri, U, X, perm):
-            self.last[tuple(perm)] = (ri.detach(), U.detach(), X.detach())
-            return self.orig(ri, U, X, perm)
-        tetci.w_apply = wrapped
-        return self
-
-    def __exit__(self, *exc):
-        from pyseqm_tpu_torch.ops import tetci
-        tetci.w_apply = self.orig
+def k3_tap():
+    """A Tap on tetci's w_apply keeping the operands (ri, U, X) of the
+    last K3 apply of each perm."""
+    from pyseqm_tpu_torch.ops import tetci
+    return Tap(tetci, "w_apply", key=lambda ri, U, X, perm: tuple(perm))
 
 
 def k3_case(C, dtype, seed):
@@ -1029,7 +1021,7 @@ def phase_flat_default(card):
     eigh_kernel.launches = 0
     k3_reset()
     solves, nc = [], 0
-    with Tap(scf, "sym_eig") as tap, K3Tap() as k3_in:
+    with Tap(scf, "sym_eig") as tap, k3_tap() as k3_in:
         c = coords
         sync()
         t0 = time.perf_counter()
@@ -1121,7 +1113,7 @@ def phase_nanostar_packed(card):
     torch.cuda.reset_peak_memory_stats()
     k3_reset()
     density.sp2_iterations = 0
-    with Tap(scf, "sp2") as tap, K3Tap() as k3_in:
+    with Tap(scf, "sp2") as tap, k3_tap() as k3_in:
         sync()
         t0 = time.perf_counter()
         out = pt.energy(const, tables, cfg, species, coords)
@@ -1174,7 +1166,7 @@ def phase_nanostar_dense(card, packed_ref):
                                                          False)
     torch.cuda.reset_peak_memory_stats()
     k3_reset()
-    with Tap(scf, "sym_eig") as tap, K3Tap() as k3_in:
+    with Tap(scf, "sym_eig") as tap, k3_tap() as k3_in:
         sync()
         t0 = time.perf_counter()
         f, out = pt.force(const, tables, cfg, species, coords)
@@ -1326,7 +1318,7 @@ def main():
         worst = phase_kernel_parity()
     with Phase("13 K3 parity"):
         worst3 = phase_k3_parity()
-    with Phase("4 main path"), K3Tap() as k3_head:
+    with Phase("4 main path"), k3_tap() as k3_head:
         (md, species, state, launches, sps, parts, per_mol, k3_main,
          k3_step) = phase_main_path(card)
     check(launches > 0, "K1 was not launched on the main path")

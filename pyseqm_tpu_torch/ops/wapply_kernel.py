@@ -41,7 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -93,17 +93,10 @@ def t_entries(perm: Tuple[int, int, int, int]) -> np.ndarray:
     return np.ascontiguousarray(ent.astype(np.int32))
 
 
-_tables: Dict[Tuple, torch.Tensor] = {}
-
-
+@functools.lru_cache(maxsize=None)
 def _device_table(perm, device) -> torch.Tensor:
     """t_entries(perm) on ``device``, copied once."""
-    key = (tuple(perm), str(device))
-    tab = _tables.get(key)
-    if tab is None:
-        tab = torch.as_tensor(t_entries(tuple(perm)), device=device)
-        _tables[key] = tab
-    return tab
+    return torch.as_tensor(t_entries(perm), device=device)
 
 
 @functools.lru_cache(maxsize=None)

@@ -29,24 +29,14 @@ from pyseqm_tpu_torch.ops.eigh_kernel import (JacobiEigh, eigh_jacobi,
 from pyseqm_tpu_torch.scf import SCFConfig
 from pyseqm_tpu_torch.system import make_system
 from pyseqm_tpu_torch.utils.molecules import make_batch
+from test_torch_layouts import jax_default_force
+from test_torch_slice import assert_xl_states_match, jax_xl_init
 
 torch.set_num_threads(1)
 
 
 def _np(x):
     return np.asarray(x.detach().cpu() if torch.is_tensor(x) else x)
-
-
-def _jax_xl_state(s):
-    """The JAX driver's state holding the port's bootstrap state (the
-    bootstrap is the SCF energy, held to the JAX package by the energy
-    tests); the step is traced and run by JAX from there."""
-    from pyseqm_tpu.drivers.xlbomd import XLBOMDState as JXLBOMDState
-    j = lambda t: jnp.asarray(_np(t))                      # noqa: E731
-    return JXLBOMDState(
-        coordinates=j(s.coordinates), velocities=j(s.velocities),
-        acc=j(s.acc), D=j(s.D), P=j(s.P), Pt=j(s.Pt), E0=j(s.E0),
-        key=jax.random.split(jax.random.PRNGKey(0))[1], step=jnp.asarray(0))
 
 
 def _random_sym(B, n, seed):
@@ -229,7 +219,7 @@ def test_sym_eig_routes_match_jax():
     rng = np.random.RandomState(6)
     X = rng.randn(sp.shape[0], n_st, n_st)
     Fpk = 3.0 * (X + np.swapaxes(X, 1, 2)) - 20.0 * np.eye(n_st)
-    Ffull = np.asarray(jdens.static_unpack_mat(jnp.asarray(Fpk), K, A))
+    Ffull = _np(tdens.static_unpack_mat(torch.tensor(Fpk), K, A))
     jsys, tsys = _systems(sp, co, K)
     routes = {
         "prepacked": (Fpk, dict(pack_heavy=K, prepacked=True,
@@ -238,11 +228,12 @@ def test_sym_eig_routes_match_jax():
         "permutation": (Ffull, dict(check_degeneracy=True)),
         "pack_n": (Ffull, dict(pack_n=pt.packed_orbital_size(sp, 4))),
     }
-    # every route's JAX reference in one program
+    # every route's JAX reference, and eig_only's, in one program
     jref = jax.jit(lambda Fp, Ff: {
         name: jdens.sym_eig(jsys, Fp if name == "prepacked" else Ff, **kw)
-        for name, (_, kw) in routes.items()})(jnp.asarray(Fpk),
-                                              jnp.asarray(Ffull))
+        for name, (_, kw) in routes.items()} | {
+        "eig_only": jdens.sym_eig(jsys, Ff, eig_only=True)})(
+            jnp.asarray(Fpk), jnp.asarray(Ffull))
     Ps = {}
     for name, (F, kw) in routes.items():
         ej, Pj, vj = jref[name]
@@ -260,14 +251,12 @@ def test_sym_eig_routes_match_jax():
         Ps[name] = _np(P)
     e2, v2, flag = tdens.sym_eig(tsys, torch.tensor(Ffull), eig_only=True,
                                  with_flag=True)
-    # eig_only runs the permutation route: its orbital energies
-    np.testing.assert_allclose(_np(e2), np.asarray(jref["permutation"][0]),
+    np.testing.assert_allclose(_np(e2), np.asarray(jref["eig_only"][0]),
                                rtol=0, atol=1e-10)
-    # the XL eigh branch solves the packed F directly: the same D as the
-    # JAX package's unpack -> pack_heavy solve -> pack
+    # the XL eigh branch solves the packed F directly: the same D as
+    # unpack -> pack_heavy solve (held to the JAX package above) -> pack
     np.testing.assert_allclose(
-        np.asarray(jdens.static_pack_mat(jnp.asarray(Ps["pack_heavy"]), K,
-                                         n_st)),
+        _np(tdens.static_pack_mat(torch.tensor(Ps["pack_heavy"]), K, n_st)),
         Ps["prepacked"], rtol=0, atol=1e-12)
 
     # fractional occupations across a degenerate Fermi level
@@ -278,8 +267,8 @@ def test_sym_eig_routes_match_jax():
                           (torch.float32, jnp.float32)):
         occ = tdens._occupations(torch.tensor(e, dtype=dtype),
                                  torch.tensor(nocc), dtype, True)
-        occj = jdens._occupations(jnp.asarray(e, jdtype), jnp.asarray(nocc),
-                                  jdtype, True)
+        occj = jax.jit(jdens._occupations, static_argnums=(2, 3))(
+            jnp.asarray(e, jdtype), jnp.asarray(nocc), jdtype, True)
         np.testing.assert_allclose(_np(occ), np.asarray(occj), rtol=0,
                                    atol=1e-7)
     assert np.allclose(_np(occ).sum(-1), nocc)
@@ -288,13 +277,6 @@ def test_sym_eig_routes_match_jax():
     occ0 = tdens._occupations(torch.tensor(e[:1]), torch.tensor([0]),
                               torch.float64, True)
     assert not occ0.any()
-
-
-def _eigh_cfg(K, method, **kw):
-    scf = dict(eps=1.0e-10, converger=(2,), pack_heavy=K)
-    scf.update(kw)
-    return pq.SEQMConfig(method=method, eig=True,
-                         scf=JSCFConfig(**scf)), scf
 
 
 def _nondegenerate(e, norb, gap=1.0e-3):
@@ -312,10 +294,10 @@ def _nondegenerate(e, norb, gap=1.0e-3):
 def test_eig_slice_batch96(golden, method):
     g = golden(f"{method.lower()}_batch96")
     sp, co = g["species"][:24], g["coordinates"][:24]
-    K = pt.packed_heavy_count(sp)
-    jcfg, scf = _eigh_cfg(K, method)
-    const, tables, cfg = pt.build(method, dtype=torch.float64, device="cpu",
-                                  eig=True, scf=SCFConfig(**scf))
+    const, tables, cfg = pt.build(
+        method, dtype=torch.float64, device="cpu", eig=True,
+        scf=SCFConfig(eps=1.0e-10, converger=(2,),
+                      pack_heavy=pt.packed_heavy_count(sp)))
     f, out = pt.force(const, tables, cfg, sp, torch.tensor(co))
     assert not out.notconverged.any()
     assert out.e.shape == (24, 32) and out.charge.shape == (24, 32, 8)
@@ -339,12 +321,10 @@ def test_eig_slice_batch96(golden, method):
         assert torch.equal(a.detach(), b)
     if method != "AM1":
         return
-    # against the JAX package at the same configuration (one method: each
+    # against the JAX package's default layout with eig=True on the same
+    # molecules (the same SCF on the unpacked matrices; one method: each
     # compiles its own program on the CPU)
-    jc = pq.make_constants(dtype=jnp.float64)
-    jt = pq.load_element_tables(method, dtype=jnp.float64)
-    jout = jax.jit(lambda c: pq.energy(jc, jt, jcfg, jnp.asarray(sp), c))(
-        jnp.asarray(co))
+    jout = jax_default_force()["jout"]
     for name in ("Hf", "Etot"):
         np.testing.assert_allclose(_np(getattr(out, name)),
                                    np.asarray(getattr(jout, name)), rtol=0,
@@ -403,28 +383,30 @@ def test_scf_check_degeneracy_reaches_the_solver(monkeypatch):
 
 
 def test_xlbomd_eigh_trajectory_matches_jax():
-    sp, co = make_batch(6, 8, jitter=0.02)
-    K = pt.packed_heavy_count(sp)
-    scf = dict(eps=1.0e-10, converger=(2,), use_sp2=False, pack_heavy=K)
+    """Five XL-BOMD steps on eigh densities from JAX's bootstrap on the
+    molecules of the eig=True reference (its energy is the bootstrap's:
+    the packed eigh SCF solves the same equations)."""
+    e = jax_default_force()
+    sp, co = e["sp"], e["co"]
+    scf = dict(eps=1.0e-10, converger=(2,), use_sp2=False,
+               pack_heavy=pt.packed_heavy_count(sp))
     const, tables, cfg = pt.build("AM1", dtype=torch.float64, device="cpu",
                                   scf=SCFConfig(**scf))
     md = XLBOMD(const, tables, cfg, MDConfig(timestep=1.0), k=5)
     s = md.initialize(sp, co, velocities=np.zeros_like(co),
                       initial_force=False)
     jcfg = pq.SEQMConfig(method="AM1", scf=JSCFConfig(**scf))
-    jc = pq.make_constants(dtype=jnp.float64)
-    jt = pq.load_element_tables("AM1", dtype=jnp.float64)
-    jmd = JXLBOMD(jc, jt, jcfg, JMDConfig(timestep=1.0), k=5)
+    jmd = JXLBOMD(e["jc"], e["jt"], jcfg, JMDConfig(timestep=1.0), k=5)
+    js = jax_xl_init(jmd, sp, co, e["jout"])
+    assert_xl_states_match(s, js)
     jsp = jnp.asarray(sp)
-    js = _jax_xl_state(s)
     jstep = jax.jit(lambda s: jmd.step(jsp, s))
     for _ in range(5):
         js, jobs = jstep(js)
         s, obs = md.step(sp, s)
     # f64: the same integrator and electronic propagation, eigh densities
-    for a, b in ((s.coordinates, js.coordinates),
-                 (s.velocities, js.velocities), (s.P, js.P), (s.D, js.D),
-                 (obs.Epot, jobs.Epot), (obs.charges, jobs.charges)):
+    assert_xl_states_match(s, js)
+    for a, b in ((obs.Epot, jobs.Epot), (obs.charges, jobs.charges)):
         np.testing.assert_allclose(_np(a), np.asarray(b), rtol=0, atol=1e-8)
 
 

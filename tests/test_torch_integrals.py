@@ -9,20 +9,17 @@ import numpy as np
 import pytest
 import torch
 
-import pyseqm_tpu as pq
 import pyseqm_tpu_torch as pt
-from pyseqm_tpu.ops import fock as jfock
-from pyseqm_tpu.ops import hcore as jhcore
 from pyseqm_tpu.ops import multipole as jmp
 from pyseqm_tpu.ops import overlap as jov
-from pyseqm_tpu.parameters import gather_atom_parameters as jgather
-from pyseqm_tpu.system import make_system as jmake_system
+from pyseqm_tpu_torch.ops import density as tdens
 from pyseqm_tpu_torch.ops import fock as tfock
 from pyseqm_tpu_torch.ops import hcore as thcore
 from pyseqm_tpu_torch.ops import multipole as tmp
 from pyseqm_tpu_torch.ops import overlap as tov
 from pyseqm_tpu_torch.parameters import gather_atom_parameters
 from pyseqm_tpu_torch.system import make_system
+from test_torch_slice import jax_packed_force
 
 torch.set_num_threads(1)
 CPU = "cpu"
@@ -54,27 +51,21 @@ def _port_overlap(args, dtype, precise, grad=False):
     return S, ts
 
 
-def _jax_overlap(args, dtype, precise):
-    qni, qnj, x, r, zi, zj = args
-    return jax.jit(lambda *a: jov.diatom_overlap(*a, precise=precise))(
-        jnp.asarray(qni), jnp.asarray(qnj), jnp.asarray(x, dtype),
-        jnp.asarray(r, dtype), jnp.asarray(zi, dtype), jnp.asarray(zj, dtype))
-
-
 def test_precise_overlap_f32_values():
     args = _overlap_inputs()
     S, _ = _port_overlap(args, torch.float32, precise=True)
-    jS = np.asarray(_jax_overlap(args, jnp.float32, precise=True))
+    # the f32 double-float and the f64 plain JAX values in one program
+    jS, jS64 = jax.jit(lambda qni, qnj, *a: [jov.diatom_overlap(
+        qni, qnj, *[t.astype(dt) for t in a], precise=dt == jnp.float32)
+        for dt in (jnp.float32, jnp.float64)])(*map(jnp.asarray, args))
     exact = _np(_port_overlap(args, torch.float64, precise=False)[0])
     # |S| <= 1: both double-float chains round once into f32, so they sit
     # within 2 ulp (1.2e-7) of each other and ~3 ulp of the f64 integrals;
     # the plain f32 chain is ~100x worse (3e-5), which this bound excludes
-    np.testing.assert_allclose(_np(S), jS, rtol=0, atol=1.2e-7)
+    np.testing.assert_allclose(_np(S), np.asarray(jS), rtol=0, atol=1.2e-7)
     np.testing.assert_allclose(_np(S), exact, rtol=0, atol=3.0e-7)
     # the f64 chains agree to rounding
-    np.testing.assert_allclose(
-        exact, np.asarray(_jax_overlap(args, jnp.float64, False)),
-        rtol=0, atol=1e-13)
+    np.testing.assert_allclose(exact, np.asarray(jS64), rtol=0, atol=1e-13)
 
 
 def test_precise_overlap_f32_backward_matches_jax_vjp():
@@ -125,32 +116,29 @@ def test_rho_additive_forward_and_vjp():
 
 
 @pytest.fixture(scope="module")
-def packed_case(golden):
-    g = golden("am1_batch96")
-    sp, co = g["species"][:32], g["coordinates"][:32]
-    K = pt.packed_heavy_count(sp)
+def packed_case():
+    """am1_batch96 on the packed layout in the port, and the JAX package's
+    packed SP2 force run on it (test_torch_slice.py): its Hcore, integrals
+    and Fock matrix at its density, unpacked to (nmol, 4A, 4A)."""
+    ref = jax_packed_force()
+    sp, co, K = ref["sp"], ref["co"], ref["K"]
     n_st = pt.packed_solver_size(K, sp.shape[1])
-    jc = pq.make_constants(dtype=jnp.float64)
-    jt = pq.load_element_tables("AM1", dtype=jnp.float64)
-    jsys, jp = jax.jit(lambda x: (lambda s: (s, jgather(jt, "AM1", s.species)))(
-        jmake_system(jc, jnp.asarray(sp), x, heavy_count=K)))(jnp.asarray(co))
     tc = pt.make_constants(dtype=torch.float64, device=CPU)
     tt = pt.load_element_tables("AM1", device=CPU, dtype=torch.float64)
     tsys = make_system(tc, sp, torch.tensor(co), heavy_count=K)
     tp = gather_atom_parameters(tt, "AM1", tsys.species)
-    jM, jw = jax.jit(lambda s, p: jhcore.hcore_dense_split(
-        jc, s, p, K, packed_m=n_st))(jsys, jp)
     tM, tw = thcore.hcore_dense_split(tc, tsys, tp, K, n_st)
-    return dict(K=K, n_st=n_st, jsys=jsys, jp=jp, tsys=tsys, tp=tp, jM=jM,
-                jw=jw, tM=tM, tw=tw)
+    return dict(K=K, n_st=n_st, A=sp.shape[1], tsys=tsys, tp=tp, tM=tM,
+                tw=tw, jout=ref["jout"])
 
 
 def test_hcore_dense_split_packed_matches_jax(packed_case):
     c = packed_case
+    jout, jw, tw = c["jout"], c["jout"].w, c["tw"]
     # f64 integrals: the same formulas, op order differs in rounding only
-    np.testing.assert_allclose(_np(c["tM"]), np.asarray(c["jM"]), rtol=0,
-                               atol=1e-11)
-    jw, tw = c["jw"], c["tw"]
+    np.testing.assert_allclose(
+        _np(tdens.static_unpack_mat(c["tM"], c["K"], c["A"])),
+        np.asarray(jout.Hcore), rtol=0, atol=1e-11)
     np.testing.assert_allclose(_np(tw.xx.rig), np.asarray(jw.xx.rig),
                                rtol=0, atol=1e-11)
     np.testing.assert_allclose(_np(tw.xx.ug), np.asarray(jw.xx.ug),
@@ -164,17 +152,16 @@ def test_hcore_dense_split_packed_matches_jax(packed_case):
 
 
 def test_fock_packed_split_matches_jax(packed_case):
+    """The packed Fock build at the density of the JAX run whose Fock
+    matrix it is held to."""
     c = packed_case
-    rng = np.random.RandomState(5)
-    X = rng.randn(c["tM"].shape[0], c["n_st"], c["n_st"]) * 0.3
-    P = X + np.swapaxes(X, 1, 2)
-    jF = jax.jit(lambda s, P, M, w, p: jfock.fock_packed_split(
-        s, P, M, w, p, c["K"], c["n_st"]))(c["jsys"], jnp.asarray(P), c["jM"],
-                                           c["jw"], c["jp"])
-    tF = tfock.fock_packed_split(c["tsys"], torch.tensor(P), c["tM"],
-                                 c["tw"], c["tp"], c["K"], c["n_st"])
+    K, n_st, A = c["K"], c["n_st"], c["A"]
+    P = tdens.static_pack_mat(torch.tensor(np.asarray(c["jout"].P)), K, n_st)
+    tF = tfock.fock_packed_split(c["tsys"], P, c["tM"], c["tw"], c["tp"], K,
+                                 n_st)
     # f64; the port contracts w with small matrix products where the JAX
     # package unrolls them: rounding-level differences on ~10 eV entries
-    np.testing.assert_allclose(_np(tF), np.asarray(jF), rtol=0, atol=1e-11)
+    np.testing.assert_allclose(_np(tdens.static_unpack_mat(tF, K, A)),
+                               np.asarray(c["jout"].F), rtol=0, atol=1e-11)
     np.testing.assert_allclose(_np(tF), _np(tF).transpose(0, 2, 1), rtol=0,
                                atol=1e-12)

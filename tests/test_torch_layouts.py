@@ -8,6 +8,8 @@ grid against the flat pair list, a molecule with A >= 64 where the dense
 grid is the default, three XL-BOMD steps on the unpacked route, and the
 configurations that raise."""
 import dataclasses
+import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -20,7 +22,6 @@ import pyseqm_tpu_torch as pt
 from pyseqm_tpu.drivers.md import MDConfig as JMDConfig
 from pyseqm_tpu.drivers.xlbomd import XLBOMD as JXLBOMD
 from pyseqm_tpu.ops import density as jdens
-from pyseqm_tpu.ops import energy as jenergy
 from pyseqm_tpu.ops import fock as jfock
 from pyseqm_tpu.ops import hcore as jhcore
 from pyseqm_tpu.ops import tetci as jtetci
@@ -34,33 +35,44 @@ from pyseqm_tpu_torch.ops import density as tdens
 from pyseqm_tpu_torch.ops import energy as tenergy
 from pyseqm_tpu_torch.ops import fock as tfock
 from pyseqm_tpu_torch.ops import hcore as thcore
+from pyseqm_tpu_torch.ops import matrix as tmatrix
 from pyseqm_tpu_torch.ops import tetci as ttetci
 from pyseqm_tpu_torch.parameters import gather_atom_parameters
 from pyseqm_tpu_torch.scf import SCFConfig
 from pyseqm_tpu_torch.system import make_system
 from pyseqm_tpu_torch.utils.molecules import make_alkane, make_batch
+from test_torch_slice import assert_xl_states_match, jax_xl_init
 
 torch.set_num_threads(1)
-NMOL = 16
+NMOL = 24
 # f64 integrals and Fock matrices: the same formulas in another operation
 # order (matrix products here, unrolled elementwise code there)
 TOL_OP = 1e-11
+# the default SCF at the golden tests' convergence
+DEFAULT_SCF = dict(eps=1.0e-10, converger=(2,))
 
 
 def _np(x):
     return np.asarray(x.detach().cpu() if torch.is_tensor(x) else x)
 
 
-def _jax_xl_state(s):
-    """The JAX driver's state holding the port's bootstrap state (the
-    bootstrap is the SCF energy, held to the JAX package by the energy
-    tests); the step is traced and run by JAX from there."""
-    from pyseqm_tpu.drivers.xlbomd import XLBOMDState as JXLBOMDState
-    j = lambda t: jnp.asarray(_np(t))                      # noqa: E731
-    return JXLBOMDState(
-        coordinates=j(s.coordinates), velocities=j(s.velocities),
-        acc=j(s.acc), D=j(s.D), P=j(s.P), Pt=j(s.Pt), E0=j(s.E0),
-        key=jax.random.split(jax.random.PRNGKey(0))[1], step=jnp.asarray(0))
+@functools.lru_cache(maxsize=None)
+def jax_default_force():
+    """The JAX package's force and energy output on the first NMOL
+    molecules of am1_batch96 with the default layout and SCF (eps 1e-10,
+    converger 2) and eig=True, in one jitted program.  test_torch_eigh.py
+    holds the port's packed eigh SCF to the same output: the same SCF on
+    the packed matrices (eig adds the orbital energies and charges)."""
+    g = np.load(os.path.join(os.path.dirname(__file__), "golden",
+                             "am1_batch96.npz"))
+    sp, co = g["species"][:NMOL], g["coordinates"][:NMOL]
+    jcfg = pq.SEQMConfig(method="AM1", eig=True,
+                         scf=JSCFConfig(**DEFAULT_SCF))
+    jc = pq.make_constants(dtype=jnp.float64)
+    jt = pq.load_element_tables("AM1", dtype=jnp.float64)
+    jf, jout = jax.jit(lambda x: pq.force(jc, jt, jcfg, jnp.asarray(sp), x))(
+        jnp.asarray(co))
+    return dict(sp=sp, co=co, jc=jc, jt=jt, jf=jf, jout=jout)
 
 
 def _close(a, b, atol=TOL_OP, msg=""):
@@ -69,48 +81,46 @@ def _close(a, b, atol=TOL_OP, msg=""):
 
 
 @pytest.fixture(scope="module")
-def case(golden):
+def case():
     """The first NMOL molecules of am1_batch96 in both packages, a
     symmetric trial density, and every layout's integrals and Fock matrix
-    from the JAX package (one jitted program)."""
-    g = golden("am1_batch96")
-    sp, co = g["species"][:NMOL], g["coordinates"][:NMOL]
+    from the JAX package: the flat pair list's from the default-layout
+    run (its Hcore, integrals, per-pair nuclear energies, and Fock matrix
+    at its density), the grids' in one jitted program."""
+    ref = jax_default_force()
+    sp, co, jout = ref["sp"], ref["co"], ref["jout"]
     K = pt.packed_heavy_count(sp)
     A = sp.shape[1]
     rng = np.random.RandomState(11)
     X = rng.randn(NMOL, 4 * A, 4 * A) * 0.3
     P = X + np.swapaxes(X, 1, 2)
-    jc = pq.make_constants(dtype=jnp.float64)
-    jt = pq.load_element_tables("AM1", dtype=jnp.float64)
+    jc, jt = ref["jc"], ref["jt"]
 
-    def ref(x, P):
+    def grids(x, P, w):
         jsys = jmake_system(jc, jnp.asarray(sp), x)
         jp = jgather(jt, "AM1", jsys.species)
-        M, w = jhcore.hcore(jc, jsys, jp)
         # hcore(dense_grid=True)'s exit
         wg_flat = jtetci.to_grid(w, A, jsys.pair_i, jsys.pair_j)
         Md, wd = jhcore.hcore_dense(jc, jsys, jp)
         Ms, ws = jhcore.hcore_dense_split(jc, jsys, jp, K)
-        return dict(
-            M=M, w=w, wg_flat=wg_flat, Md=Md, wd=wd, Ms=Ms, ws=ws,
-            F_flat=jfock.fock(jsys, P, M, w, jp),
-            F_grid=jfock.fock(jsys, P, Md, wd, jp),
-            F_split=jfock.fock(jsys, P, Ms, ws, jp),
-            enuc=jenergy.pair_nuclear_energy(jc, jsys, w.ri[..., 0], "AM1",
-                                             jp))
-    jref = jax.jit(ref)(jnp.asarray(co), jnp.asarray(P))
+        return dict(wg_flat=wg_flat, Md=Md, wd=wd, Ms=Ms, ws=ws,
+                    F_grid=jfock.fock(jsys, P, Md, wd, jp),
+                    F_split=jfock.fock(jsys, P, Ms, ws, jp))
+    jref = jax.jit(grids)(jnp.asarray(co), jnp.asarray(P), jout.w)
+    jref.update(M=jout.Hcore, w=jout.w, F_flat=jout.F, enuc=jout.EnucAB)
     tc = pt.make_constants(dtype=torch.float64, device="cpu")
     tt = pt.load_element_tables("AM1", device="cpu", dtype=torch.float64)
     tsys = make_system(tc, sp, torch.tensor(co))
     tp = gather_atom_parameters(tt, "AM1", tsys.species)
-    return dict(sp=sp, co=co, K=K, P=torch.tensor(P), tc=tc, tsys=tsys,
-                tp=tp, jref=jref)
+    return dict(sp=sp, co=co, K=K, tc=tc, tsys=tsys, tp=tp, jref=jref,
+                P=dict(grid=torch.tensor(P), split=torch.tensor(P),
+                       flat=torch.tensor(np.asarray(jout.P))))
 
 
 def test_hcore_flat_and_grid_exit_match_jax(case):
     c, j = case, case["jref"]
     M, w = thcore.hcore(c["tc"], c["tsys"], c["tp"])
-    _close(M, j["M"])
+    _close(tmatrix.grid_to_mat(M), j["M"])
     _close(w.ri, j["w"].ri)
     _close(w.U, j["w"].U, 1e-13)
     _, wg = thcore.hcore(c["tc"], c["tsys"], c["tp"], dense_grid=True)
@@ -150,7 +160,7 @@ def test_hcore_dense_and_split_grid_match_jax(case):
     _close(wd.rig, j["wd"].rig)
     _close(wd.ug, j["wd"].ug, 1e-13)
     # the dense grid's Hcore is the flat one's on every element
-    _close(Md, j["M"])
+    _close(tmatrix.grid_to_mat(Md), j["M"])
     Ms, ws = thcore.hcore_dense_split(c["tc"], c["tsys"], c["tp"], c["K"])
     _close(Ms, j["Ms"])
     for a, b in ((ws.xx.rig, j["ws"].xx.rig), (ws.xh, j["ws"].xh),
@@ -167,7 +177,9 @@ def test_fock_branches_match_jax(case, layout):
         M, w = thcore.hcore_dense(c["tc"], c["tsys"], c["tp"])
     else:
         M, w = thcore.hcore_dense_split(c["tc"], c["tsys"], c["tp"], c["K"])
-    F = tfock.fock(c["tsys"], c["P"], M, w, c["tp"])
+    # the grids at the trial density, the flat pairs at the density of the
+    # JAX run whose Fock matrix they are held to
+    F = tfock.fock(c["tsys"], c["P"][layout], M, w, c["tp"])
     _close(F, c["jref"][f"F_{layout}"])
     _close(F, _np(F).transpose(0, 2, 1), 1e-12)
 
@@ -184,7 +196,7 @@ def test_flat_pair_nuclear_energy_and_totals_match_jax(case):
                                                c["tp"])[1].rig[..., 0],
         "AM1", c["tp"])
     _close(enuc.sum(-1), _np(grid.sum(-1)))
-    P = c["P"]
+    P = c["P"]["grid"]
     Eel = tenergy.elec_energy(P, P, P)
     Etot, Enuc = tenergy.total_energy(enuc, Eel)
     _close(Enuc, _np(enuc).sum(-1), 1e-12)
@@ -200,17 +212,12 @@ def test_flat_pair_nuclear_energy_and_totals_match_jax(case):
 def default_run(case, golden):
     """energy/force with the default SCFConfig in both packages."""
     c = case
-    scf = dict(eps=1.0e-10, converger=(2,))
-    jcfg = pq.SEQMConfig(method="AM1", scf=JSCFConfig(**scf))
-    jc = pq.make_constants(dtype=jnp.float64)
-    jt = pq.load_element_tables("AM1", dtype=jnp.float64)
-    jf, jout = jax.jit(lambda x: pq.force(jc, jt, jcfg, jnp.asarray(c["sp"]),
-                                          x))(jnp.asarray(c["co"]))
+    ref = jax_default_force()
     const, tables, cfg = pt.build("AM1", dtype=torch.float64, device="cpu",
-                                  scf=SCFConfig(**scf))
+                                  scf=SCFConfig(**DEFAULT_SCF))
     f, out = pt.force(const, tables, cfg, c["sp"], torch.tensor(c["co"]))
-    return dict(jf=jf, jout=jout, f=f, out=out, const=const, tables=tables,
-                cfg=cfg, g=golden("am1_batch96"))
+    return dict(ref, f=f, out=out, const=const, tables=tables, cfg=cfg,
+                g=golden("am1_batch96"))
 
 
 def test_energy_force_default_config_match_jax_and_golden(default_run):
@@ -317,33 +324,39 @@ def test_class_segmented_grid_without_packing():
     _close(res[0][0], _np(res[1][0]), 1e-9)
 
 
-def test_xlbomd_unpacked_trajectory_matches_jax():
-    """Three XL-BOMD steps on the full layout: SP2 with Gelfand bounds,
-    the pack_orbitals cut and the eigh rescue of the worst molecule."""
-    sp, co = make_batch(4, 8, jitter=0.02, seed=2)
-    scf = dict(eps=1.0e-10, converger=(2,), use_sp2=True, sp2_eps=1.0e-7,
+def test_xlbomd_unpacked_trajectory_matches_jax(default_run):
+    """Three XL-BOMD steps on the full layout (SP2 with Gelfand bounds,
+    the pack_orbitals cut and the eigh rescue of the worst molecules) from
+    the bootstrap of the default SCF: the port's on the molecules of the
+    default-layout run, JAX's on that run's reference energy."""
+    r = default_run
+    sp, co = r["sp"], r["co"]
+    boot = XLBOMD(r["const"], r["tables"], r["cfg"], MDConfig(timestep=1.0),
+                  k=5)
+    s = boot.initialize(sp, co, velocities=np.zeros_like(co),
+                        initial_force=False)
+    jcfg = pq.SEQMConfig(method="AM1", scf=JSCFConfig(**DEFAULT_SCF))
+    js = jax_xl_init(JXLBOMD(r["jc"], r["jt"], jcfg, JMDConfig(timestep=1.0),
+                             k=5), sp, co, r["jout"])
+    assert s.Pt.shape[-1] == 4 * sp.shape[1]      # the full-layout state
+    # f64: the same bootstrap density in the same state
+    assert_xl_states_match(s, js)
+    scf = dict(DEFAULT_SCF, use_sp2=True, sp2_eps=1.0e-7,
                sp2_tight_bounds=True, sp2_rescue=0.25,
                pack_orbitals=pt.packed_orbital_size(sp, 8))
     const, tables, cfg = pt.build("AM1", dtype=torch.float64, device="cpu",
                                   scf=SCFConfig(**scf))
     md = XLBOMD(const, tables, cfg, MDConfig(timestep=1.0), k=5)
-    s = md.initialize(sp, co, velocities=np.zeros_like(co),
-                      initial_force=False)
     jcfg = pq.SEQMConfig(method="AM1", scf=JSCFConfig(**scf))
-    jc = pq.make_constants(dtype=jnp.float64)
-    jt = pq.load_element_tables("AM1", dtype=jnp.float64)
-    jmd = JXLBOMD(jc, jt, jcfg, JMDConfig(timestep=1.0), k=5)
+    jmd = JXLBOMD(r["jc"], r["jt"], jcfg, JMDConfig(timestep=1.0), k=5)
     jsp = jnp.asarray(sp)
-    js = _jax_xl_state(s)
     jstep = jax.jit(lambda s: jmd.step(jsp, s))
     for _ in range(3):
         js, jobs = jstep(js)
         s, obs = md.step(sp, s)
-    assert s.Pt.shape[-1] == 4 * sp.shape[1]      # the full-layout state
     # f64, the same integrator, propagation and rescue
-    for a, b in ((s.coordinates, js.coordinates),
-                 (s.velocities, js.velocities), (s.P, js.P), (s.D, js.D),
-                 (obs.Epot, jobs.Epot), (obs.charges, jobs.charges)):
+    assert_xl_states_match(s, js)
+    for a, b in ((obs.Epot, jobs.Epot), (obs.charges, jobs.charges)):
         _close(a, b, 1e-8)
 
 

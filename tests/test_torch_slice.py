@@ -4,6 +4,9 @@ the same configuration and against the f64 goldens; five packed XL-BOMD
 steps against JAX; the NVE and XL drivers against the reference's f64
 trajectories; and float32 XL steps against the f64 port."""
 import dataclasses
+import functools
+import importlib
+import os
 
 import jax
 import jax.numpy as jnp
@@ -31,16 +34,32 @@ def _np(x):
     return np.asarray(x.detach().cpu() if torch.is_tensor(x) else x)
 
 
-def _jax_xl_state(s):
-    """The JAX driver's state holding the port's bootstrap state (the
-    bootstrap is the SCF energy, held to the JAX package by the energy
-    tests); the step is traced and run by JAX from there."""
-    from pyseqm_tpu.drivers.xlbomd import XLBOMDState as JXLBOMDState
-    j = lambda t: jnp.asarray(_np(t))                      # noqa: E731
-    return JXLBOMDState(
-        coordinates=j(s.coordinates), velocities=j(s.velocities),
-        acc=j(s.acc), D=j(s.D), P=j(s.P), Pt=j(s.Pt), E0=j(s.E0),
-        key=jax.random.split(jax.random.PRNGKey(0))[1], step=jnp.asarray(0))
+def jax_xl_init(jmd, sp, co, jout):
+    """JAX's XLBOMD.initialize (initial_force=False: one SCF energy, acc at
+    zero) with that energy taken from ``jout``, the JAX package's energy
+    output for the same molecules and configuration: XLBOMD's own packing
+    and state on the reference's own density, in one jitted program,
+    without tracing the SCF a second time."""
+    jenergy = importlib.import_module("pyseqm_tpu.models.energy")
+    energy = jenergy.energy
+    jsp = jnp.asarray(sp)
+
+    def init(x, out):
+        jenergy.energy = lambda *args, **kwargs: out
+        return jmd.initialize(jsp, x, velocities=jnp.zeros_like(x),
+                              initial_force=False)
+    try:
+        return jax.jit(init)(jnp.asarray(co), jout)
+    finally:
+        jenergy.energy = energy
+
+
+def assert_xl_states_match(s, js, atol=1e-8):
+    """The port's XL state against JAX's, field by field."""
+    for name in ("coordinates", "velocities", "acc", "D", "P", "Pt", "E0"):
+        np.testing.assert_allclose(_np(getattr(s, name)),
+                                   np.asarray(getattr(js, name)), rtol=0,
+                                   atol=atol, err_msg=name)
 
 
 def _configs(K, **kw):
@@ -51,8 +70,15 @@ def _configs(K, **kw):
     return jcfg, scf
 
 
-def test_energy_force_batch96_match_jax_and_golden(golden):
-    g = golden("am1_batch96")
+@functools.lru_cache(maxsize=None)
+def jax_packed_force():
+    """am1_batch96 on the packed SP2 path: the JAX package's force and
+    energy output (one jitted program) at the configuration the port runs.
+    test_torch_integrals.py holds the port's packed integrals and Fock
+    build to the same output (its Hcore, integrals, and Fock matrix at its
+    density)."""
+    g = np.load(os.path.join(os.path.dirname(__file__), "golden",
+                             "am1_batch96.npz"))
     sp, co = g["species"], g["coordinates"]
     K = pt.packed_heavy_count(sp)
     jcfg, scf = _configs(K)
@@ -60,8 +86,15 @@ def test_energy_force_batch96_match_jax_and_golden(golden):
     jt = pq.load_element_tables("AM1", dtype=jnp.float64)
     jf, jout = jax.jit(lambda c: pq.force(jc, jt, jcfg, jnp.asarray(sp), c))(
         jnp.asarray(co))
+    return dict(g=g, sp=sp, co=co, K=K, jcfg=jcfg, scf=scf, jc=jc, jt=jt,
+                jf=jf, jout=jout)
+
+
+def test_energy_force_batch96_match_jax_and_golden():
+    b = jax_packed_force()
+    g, sp, co, jf, jout = b["g"], b["sp"], b["co"], b["jf"], b["jout"]
     const, tables, cfg = pt.build("AM1", dtype=torch.float64, device="cpu",
-                                  scf=SCFConfig(**scf))
+                                  scf=SCFConfig(**b["scf"]))
     f, out = pt.force(const, tables, cfg, sp, torch.tensor(co))
     assert not out.notconverged.any()
     # same configuration, same algorithms at f64: the energies agree to
@@ -81,30 +114,29 @@ def test_energy_force_batch96_match_jax_and_golden(golden):
 
 
 def test_xlbomd_packed_trajectory_matches_jax():
-    sp, co = make_batch(6, 8, jitter=0.02)
-    K = pt.packed_heavy_count(sp)
-    jcfg, scf = _configs(K)
+    b = jax_packed_force()
+    sp, co = b["sp"], b["co"]
     const, tables, cfg = pt.build("AM1", dtype=torch.float64, device="cpu",
-                                  scf=SCFConfig(**scf))
+                                  scf=SCFConfig(**b["scf"]))
     md = XLBOMD(const, tables, cfg, MDConfig(timestep=1.0), k=5)
     # the headline bootstrap: one SCF energy, acc starting at zero
     s = md.initialize(sp, co, velocities=np.zeros_like(co),
                       initial_force=False)
-    jc = pq.make_constants(dtype=jnp.float64)
-    jt = pq.load_element_tables("AM1", dtype=jnp.float64)
-    jmd = JXLBOMD(jc, jt, jcfg, JMDConfig(timestep=1.0), k=5)
+    jmd = JXLBOMD(b["jc"], b["jt"], b["jcfg"], JMDConfig(timestep=1.0), k=5)
+    js = jax_xl_init(jmd, sp, co, b["jout"])
+    assert s.Pt.shape[-1] < 4 * sp.shape[1]      # the packed electronic state
+    # f64: the same bootstrap density, packed into the same state
+    assert_xl_states_match(s, js)
     jsp = jnp.asarray(sp)
-    js = _jax_xl_state(s)
     jstep = jax.jit(lambda s: jmd.step(jsp, s))
     for _ in range(5):
         js, jobs = jstep(js)
         s, obs = md.step(sp, s)
-    assert s.Pt.shape[-1] < 4 * sp.shape[1]      # the packed electronic state
     # f64, identical integrator and electronic propagation
-    for a, b in ((s.coordinates, js.coordinates),
-                 (s.velocities, js.velocities), (s.P, js.P), (s.D, js.D),
-                 (obs.Epot, jobs.Epot), (obs.charges, jobs.charges)):
-        np.testing.assert_allclose(_np(a), np.asarray(b), rtol=0, atol=1e-8)
+    assert_xl_states_match(s, js)
+    for got, want in ((obs.Epot, jobs.Epot), (obs.charges, jobs.charges)):
+        np.testing.assert_allclose(_np(got), np.asarray(want), rtol=0,
+                                   atol=1e-8)
 
 
 def test_xlbomd_f32_tracks_f64():

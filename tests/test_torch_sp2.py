@@ -42,14 +42,34 @@ def _gap_case(B, n, nocc, seed):
     return a0, np.full((B,), float(nocc), np.float32), P
 
 
-@pytest.mark.parametrize("B,n,nocc,seed", [(20, 16, 5, 2), (12, 32, 8, 0),
-                                           (7, 32, 5, 1)])
-def test_reference_matches_interpret_kernel(B, n, nocc, seed):
+CASES = [(20, 16, 5, 2), (12, 32, 8, 0), (7, 32, 5, 1)]
+
+
+@pytest.fixture(scope="module")
+def interpret_kernel():
+    """The TPU kernel in interpret mode on every case, in one call per
+    matrix size: the cases of one n side by side.  Its molecules are
+    independent (each stops under its own convergence mask, and another
+    molecule's columns enter its block products as exact zeros)."""
+    out = {}
+    for n in sorted({c[1] for c in CASES}):
+        cases = [c for c in CASES if c[1] == n]
+        a0, nocc = [np.concatenate(t) for t in
+                    zip(*[_gap_case(*c)[:2] for c in cases])]
+        P = np.asarray(sp2_purify_tpu(jnp.asarray(a0), jnp.asarray(nocc),
+                                      1.0e-5, interpret=True))
+        out.update(zip(cases, np.split(P, np.cumsum(
+            [c[0] for c in cases])[:-1])))
+    return out
+
+
+@pytest.mark.parametrize("B,n,nocc,seed", CASES)
+def test_reference_matches_interpret_kernel(B, n, nocc, seed,
+                                            interpret_kernel):
     a0, nocc_f, P_exact = _gap_case(B, n, nocc, seed)
     P = sp2_purify_reference(torch.from_numpy(a0), torch.from_numpy(nocc_f),
                              1.0e-5).numpy()
-    Pj = np.asarray(sp2_purify_tpu(jnp.asarray(a0), jnp.asarray(nocc_f),
-                                   1.0e-5, interpret=True))
+    Pj = interpret_kernel[(B, n, nocc, seed)]
     # the bounds of test_kernels.py: f32 SP2 against exact, idempotency
     # after the McWeeny polish, trace; the two implementations sum in
     # different orders, so they agree to the same 5e-5
@@ -94,8 +114,7 @@ def test_sp2_prepacked_f64_matches_jax():
         heavy_count=K))(jnp.asarray(co))
     tsys = make_system(pt.make_constants(dtype=torch.float64, device="cpu"),
                        sp, torch.tensor(co), heavy_count=K)
-    Ffull = np.asarray(jdens.static_unpack_mat(jnp.asarray(F), K,
-                                               sp.shape[1]))
+    Ffull = tdens.static_unpack_mat(torch.tensor(F), K, sp.shape[1]).numpy()
     # the three JAX references in one program
     Pjs = jax.jit(lambda Fp, Ff: [
         jdens.sp2(jsys, Fp, eps, pack_heavy=K, prepacked=True)

@@ -46,36 +46,36 @@ def _torch_grads(fn, ri, U, X, Yb, perm):
 
 
 @pytest.fixture(scope="module")
-def pallas():
-    """tools/wapply_pallas.py, loaded by path (tools/ is no package)."""
+def jax_refs():
+    """In one jitted program: JAX _w_apply and its VJP for every perm
+    (f64), and the TPU kernel tools/wapply_pallas.py in interpret mode for
+    every perm (f32; loaded by path, tools/ is no package)."""
     spec = importlib.util.spec_from_file_location(
         "wapply_pallas", os.path.join(REPO, "tools", "wapply_pallas.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    pallas = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(pallas)
+    f64 = _case(40, 1)
+    # 300 cells: not a multiple of the TPU kernel's 128-lane rows
+    f32 = _case(300, 2, np.float32)[:3]
 
-
-@pytest.fixture(scope="module")
-def jax_w_apply():
-    """JAX _w_apply and its VJP for every perm, in one jitted program."""
-    ri, U, X, Yb = _case(40, 1)
-
-    def ref(a, b, c, yb):
-        out = {}
+    def ref(f64, f32):
+        ri, U, X, yb = f64
+        vjps = {}
         for perm in PERMS:
             y, vjp = jax.vjp(lambda *o: jtetci._w_apply(
-                jtetci.WPack(ri=o[0], U=o[1]), o[2], perm), a, b, c)
-            out[perm] = (y,) + vjp(yb)
-        return out
-    res = jax.jit(ref)(*[jnp.asarray(a) for a in (ri, U, X, Yb)])
-    return (ri, U, X, Yb), {k: [np.asarray(t) for t in v]
-                            for k, v in res.items()}
+                jtetci.WPack(ri=o[0], U=o[1]), o[2], perm), ri, U, X)
+            vjps[perm] = (y,) + vjp(yb)
+        return vjps, {perm: pallas.w_apply_fused(*f32, perm, True)
+                      for perm in PERMS}
+    vjps, fused = jax.jit(ref)(*jax.tree.map(jnp.asarray, (f64, f32)))
+    return dict(f64=f64, f32=f32, fused=fused,
+                vjps={k: [np.asarray(t) for t in v] for k, v in vjps.items()})
 
 
 @pytest.mark.parametrize("perm", PERMS)
-def test_reference_matches_jax_w_apply(jax_w_apply, perm):
-    (ri, U, X, Yb), ref = jax_w_apply
-    want = list(ref[perm])
+def test_reference_matches_jax_w_apply(jax_refs, perm):
+    ri, U, X, Yb = jax_refs["f64"]
+    want = list(jax_refs["vjps"][perm])
     got = _torch_grads(wk.w_apply_reference, ri, U, X, Yb, perm)
     # f64, the same contraction (matrix products here, unrolled there):
     # rounding only.  JAX's U gradient, like the kernel's, lives on the
@@ -88,19 +88,13 @@ def test_reference_matches_jax_w_apply(jax_w_apply, perm):
                                    atol=1e-12 * np.abs(b).max())
 
 
-def test_reference_matches_pallas_interpret(pallas):
-    """The plain version against the TPU kernel's forward, each perm, in
-    one program.  Its backward kernel is held to JAX's VJP of _w_apply by
-    its own check(), and the plain version's VJP to that same VJP above."""
-    # 300 cells: not a multiple of the TPU kernel's 128-lane rows
-    ri, U, X, _ = _case(300, 2, np.float32)
-    res = jax.jit(lambda a, b, c: {
-        perm: pallas.w_apply_fused(a, b, c, perm, True) for perm in PERMS})(
-            jnp.asarray(ri), jnp.asarray(U), jnp.asarray(X))
+def test_reference_matches_pallas_interpret(jax_refs):
+    """The plain version against the TPU kernel's forward, each perm.  Its
+    backward kernel is held to JAX's VJP of _w_apply by its own check(),
+    and the plain version's VJP to that same VJP above."""
     for perm in PERMS:
-        y = wk.w_apply_reference(*[torch.tensor(a) for a in (ri, U, X)],
-                                 perm)
-        b = np.asarray(res[perm])
+        y = wk.w_apply_reference(*map(torch.tensor, jax_refs["f32"]), perm)
+        b = np.asarray(jax_refs["fused"][perm])
         # f32: the bound of the TPU kernel's own check (3e-6 of the
         # largest value)
         assert np.abs(_np(y) - b).max() < 3.0e-6 * np.abs(b).max(), perm
