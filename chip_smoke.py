@@ -10,9 +10,13 @@ line is printed):
    versions; TF32 off;
 2. build: compile every CUDA kernel (csrc/sp2.cu, csrc/eigh.cu,
    csrc/wapply.cu) from the sources in the checkout, one nvcc per source,
-   started together, and print ptxas's registers and spills for K3;
+   started together, and print ptxas's registers and spills per kernel;
+   then, under torch.profiler (first in the process): eigh_jacobi and
+   sp2_purify on CUDA are one device kernel per call, and the device-only
+   timer against the profiler's kernel time on a K3 forward;
 3. K1 (SP2) against its plain version and the exact density (f64 eigh) on
-   the card, at the main path's shape and at ragged/large sizes;
+   the card, at the main path's shape and at n = 8, 12, 16, 24, 32
+   (the warp kernel) and 128 (the block kernel);
 13. K3 (the fused two-electron apply, forward and backward) against its
     plain version at every path's cell count, a ragged count and an
     expanded X, three perms, float32 and float64;
@@ -20,7 +24,8 @@ line is printed):
    one bootstrap SCF (DIIS, SP2) then XL-BOMD (k=5, 0.4 fs) through the
    entry points build -> XLBOMD.initialize -> XLBOMD.step: steps/s, kernel
    launches, a one-step CUDA-event breakdown and the energy drift;
-5. K1's time on that path's own input against its bound;
+5. K1's time on that path's own input against its bound (device time
+   alone, ``device_ms``);
 6. measurements that say where the step's time goes (not checked): kernel
    launches and device kernel time of one profiled step against the timed
    step, the step without the double-float overlap chain, and the drift of
@@ -28,8 +33,10 @@ line is printed):
 7. float32 accuracy of the SP2 path: energy and force of the first 256
    molecules against the port at float64;
 8. K2 (one-sided Jacobi eigh) against exact (f64 eigh) and its plain
-   version at n = 16, 24, 32, 128; the rescue of molecules forced
-   unconverged with MAX_SWEEPS = 1;
+   version (equal sweeps; differing elements counted) at n = 2, 4, 8,
+   16, 24, 32 (the warp kernel) and 128 (the block kernel), with
+   diagonal and dense matrices alternating; the rescue of molecules
+   forced unconverged with MAX_SWEEPS = 1;
 9. the eigh SCF at full width (the JAX package's `bench.py --config
    scf-eigh`): molecules/s over 3 chained energy calls, SCF iterations,
    unconverged count, K2 launches against density solves, rescued count;
@@ -38,9 +45,10 @@ line is printed):
     (Hf, force, orbital energies);
 11. XL-BOMD on eigh densities at full width: steps/s, one K2 launch per
     step, energy drift, and one profiled step (launches, device time);
-12. K2's time on the eigh path's own inputs (n = 16 and 32): the kernel
-    launch alone against its bound and its plain version, the whole
-    wrapper against torch.linalg.eigh;
+12. K2's time on the eigh path's own inputs (n = 16 and 32): eigh_jacobi
+    is one launch (phase 2); its device time alone against its bound and
+    its plain version, the whole call with host time against
+    torch.linalg.eigh;
 14. the default layout at full width (no pack_heavy: flat pairs, the
     block-grid Fock, K2 at n = 32 on the orbital permutation):
     molecules/s over 3 chained energy calls, float32 against float64 on
@@ -52,12 +60,16 @@ line is printed):
 16. the nanostar on the dense grid with the default layout (hcore_dense,
     K3 on 884^2 cells, eigh at pack_orbitals = 1792): one force call, and
     both nanostar runs held to each other and to a float64 dense run;
-17. K3's time on each path's own inputs (launch alone, forward and
-    backward) against its bound and its plain version;
+17. K3's time on each path's own inputs (device time alone, forward and
+    backward, beside the host-inclusive reading) against its bound and
+    its plain version;
 18. a JSON line of every kernel with its launches, error and times against
     its bound; then the card; the elapsed time; then the result line.
 
-Every phase prints its elapsed time.
+Every phase prints its elapsed time.  A kernel "alone" is timed by
+``device_ms``: a spin kernel queued ahead of each call keeps the card busy
+while the host enqueues the call, so the CUDA events around it read device
+time only.
 
 Imports torch, numpy and pyseqm_tpu_torch only.  Exits non-zero without a
 CUDA device, or when the package is not next to this script.
@@ -135,22 +147,11 @@ def sync():
     torch.cuda.synchronize()
 
 
-def event_ms(fn, reps):
-    """Mean device time of fn() over reps calls (after one warm-up)."""
-    fn()
-    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    sync()
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    sync()
-    return start.elapsed_time(stop) / reps
-
-
 def median_ms(fn, reps):
-    """Median device time of one fn() call over reps calls (after one
-    warm-up), each call between its own pair of CUDA events."""
+    """Median time of one fn() call over reps calls (after one warm-up),
+    each call between its own pair of CUDA events with nothing queued
+    ahead: the host's time to enqueue the call falls between the events
+    too (the reading for a whole wrapper)."""
     fn()
     sync()
     pairs = []
@@ -162,6 +163,68 @@ def median_ms(fn, reps):
         pairs.append((start, stop))
     sync()
     return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+
+_CYCLES_PER_MS = []
+
+
+def cycles_per_ms():
+    """GPU clock cycles per ms of torch.cuda._sleep, measured once."""
+    if not _CYCLES_PER_MS:
+        cycles = 2_000_000
+        torch.cuda._sleep(cycles // 10)             # warm-up
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        torch.cuda._sleep(cycles)
+        stop.record()
+        sync()
+        _CYCLES_PER_MS.append(cycles / start.elapsed_time(stop))
+    return _CYCLES_PER_MS[0]
+
+
+def device_ms(fn, reps):
+    """Median device time of one fn() call over reps calls (after one
+    warm-up).  Before each call the stream gets a spin kernel
+    (torch.cuda._sleep) that outlasts twice the host's time to enqueue fn()
+    plus 0.2 ms, then start.record(); fn(); stop.record(): fn()'s launches
+    are queued before the start event fires, so the events read the
+    device alone, not the wrapper's host time.  Inputs stay in L2 between
+    calls where they fit."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    sync()
+    cycles = int((2.0 * host_ms + 0.2) * cycles_per_ms())
+    pairs = []
+    for _ in range(reps):
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(cycles)
+        start.record()
+        fn()
+        stop.record()
+        pairs.append((start, stop))
+    sync()
+    return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+
+def profiler_kernel_ms(fn, reps):
+    """(device kernel ms per fn() call, the device kernels' names) under
+    torch.profiler over reps calls (after one warm-up): the sum of the
+    device kernels' durations, and one name per launch."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.device_time_total for e in kern) / 1e3 / reps,
+            [e.name for e in kern])
 
 
 def card_line():
@@ -202,12 +265,56 @@ def phase_build():
     print(f"[2 build] {', '.join(k.SOURCE + '.cu' for k in kernels)} -> "
           f"{cuda_build.BUILD_DIR} in {time.perf_counter() - t0:.2f} s",
           flush=True)
-    report = [ln.strip() for ln in
-              cuda_build.ptxas_report(wapply_kernel.SOURCE).splitlines()
-              if "Compiling entry" in ln or "Used" in ln or "spill" in ln
-              or "stack frame" in ln]
-    print("[2 ptxas wapply.cu] " + " | ".join(report), flush=True)
-    return report
+    reports = {}
+    for k in kernels:
+        reports[k.SOURCE] = [
+            ln.strip() for ln in cuda_build.ptxas_report(k.SOURCE).splitlines()
+            if "Compiling entry" in ln or "Used" in ln or "spill" in ln
+            or "stack frame" in ln]
+        print(f"[2 ptxas {k.SOURCE}.cu] " + " | ".join(reports[k.SOURCE]),
+              flush=True)
+    return reports
+
+
+def phase_profiler():
+    """torch.profiler, first in the process (profiles taken after the long
+    XL runs of phases 6 and 11 recorded no device kernel for a lone K2 call
+    in one run; PERF.md): eigh_jacobi and sp2_purify on CUDA tensors are
+    one device kernel each, at every kernel variant; the device-only timer
+    read against the profiler's kernel time, and against median_ms, on a
+    K3 forward at the headline's cell count."""
+    from pyseqm_tpu_torch.ops import eigh_kernel as ek, sp2_kernel as sk
+    from pyseqm_tpu_torch.ops import wapply_kernel as wk
+    for n in (2, 16, 24, 32, 128):
+        A = sym_case(64, n, 30 + n)
+        _, names = profiler_kernel_ms(lambda: ek.eigh_jacobi(A, True), 1)
+        check(len(names) == 1 and "eigh" in names[0], f"eigh_jacobi at n={n} "
+              f"launched device kernels {names}, expected one")
+    for n in (12, 16, 24, 32, 128):
+        a0, occ = gap_case(64, n, n // 3, 40 + n)
+        _, names = profiler_kernel_ms(lambda: sk.sp2_purify(a0, occ), 1)
+        check(len(names) == 1 and "sp2" in names[0], f"sp2_purify at n={n} "
+              f"launched device kernels {names}, expected one")
+    print("[2 profiler] eigh_jacobi (n = 2, 16, 24, 32, 128) and sp2_purify "
+          "(n = 12, 16, 24, 32, 128) on CUDA: one device kernel per call",
+          flush=True)
+    C = K3_CELLS["headline packed XX"]
+    ri, U, X, _ = (t.contiguous() for t in k3_case(C, torch.float32, 77))
+    perm = (1, 3, 2, 4)
+
+    def fwd():
+        return wk._launch_fwd(ri, U, X, perm)
+    dev = device_ms(fwd, 20)
+    prof, names = profiler_kernel_ms(fwd, 20)
+    host = median_ms(fwd, 20)
+    print(f"[2 timer cross-check, K3 fwd C={C} perm {perm}] device_ms "
+          f"{dev:.4f} ms, torch.profiler kernel time {prof:.4f} ms per call "
+          f"({len(names)} launches in 20 calls), median_ms (host time "
+          f"included) {host:.4f} ms", flush=True)
+    check(len(names) == 20, f"K3 forward: {len(names)} device kernels in 20 "
+          "calls under torch.profiler")
+    return {"cells": C, "device_ms": dev, "profiler_ms": prof,
+            "median_ms": host}
 
 
 def gap_case(B, n, nocc, seed):
@@ -260,7 +367,10 @@ def fmt(d):
 
 def phase_kernel_parity():
     worst = 0.0
+    # n <= 16: the half-warp kernel (8, 12: padded lanes), 17-32 the warp
+    # kernel, 128 the block kernel; B = 7 leaves a block part empty
     for B, n, nocc, seed in ((NMOL, 16, 5, 0), (7, 16, 5, 1),
+                             (7, 8, 3, 4), (7, 12, 4, 5), (7, 24, 8, 6),
                              (7, 32, 11, 2), (7, 128, 40, 3)):
         a0, occ = gap_case(B, n, nocc, seed)
         _, st = sp2_stats(a0, occ, 1.0e-5)
@@ -508,9 +618,9 @@ def phase_kernel_times(md, species, state, launches, worst_synthetic):
     Pr = sp2_purify_reference(a0, nocc, eps)
     err = (P - Pr).abs().max().item()
     check(err <= TOL_KERNEL, f"K1 vs plain on the main-path input: {err}")
-    ms = event_ms(lambda: sp2_purify(a0, nocc, eps), 20)
-    plain_ms = event_ms(lambda: sp2_purify_reference(a0, nocc, eps), 3)
-    eigh_ms = event_ms(lambda: torch.linalg.eigh(a0), 3)
+    ms = device_ms(lambda: sp2_purify(a0, nocc, eps), 20)
+    plain_ms = median_ms(lambda: sp2_purify_reference(a0, nocc, eps), 3)
+    eigh_ms = median_ms(lambda: torch.linalg.eigh(a0), 3)
     it = iters.double()
     # per iteration X^2 (2n^3) + ||X||^2 (2n^2) + update (3n^2); McWeeny
     # 2 products (4n^3) + 3n^2; bytes: a0 and nocc read, P and the
@@ -519,7 +629,8 @@ def phase_kernel_times(md, species, state, launches, worst_synthetic):
         + B * (4 * n ** 3 + 3 * n ** 2)
     nbytes = 2 * B * n * n * 4 + 2 * B * 4
     t_flop, t_byte = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
-    print(f"[5 K1 timing] main-path input B={B} n={n}: kernel {ms:.4f} ms, "
+    print(f"[5 K1 timing] main-path input B={B} n={n}: kernel {ms:.4f} ms "
+          f"(median of 20, device time alone), "
           f"plain {plain_ms:.3f} ms, torch.linalg.eigh (reference point, "
           f"not the same function) {eigh_ms:.3f} ms | iterations mean "
           f"{it.mean().item():.2f} max {int(it.max().item())} | bound "
@@ -594,12 +705,14 @@ class Tap:
 
 def sym_case(B, n, seed, kind="dense"):
     """Symmetric f32 test matrices from a numpy seed: "dense" random (the
-    class of tests/test_kernels.py), "degenerate" (its n = 24 case, an
-    exact double eigenvalue), or "fock" (diagonal -20, off-diagonal
-    N(0, 18), the packed-F class of tests/test_torch_sp2.py).  At n = 128
-    a dense matrix's Gershgorin shift is ~30 max|A|, and e = sigma - |g|
-    carries the f32 rounding of that shift, close to the 5e-4 max|A|
-    bound; the Fock class keeps the shift at ~14 max|A|."""
+    class of tests/test_kernels.py), "mixed" (dense, every other matrix
+    cut to its diagonal: one sweep converges those, so molecules that
+    share a warp leave at different sweeps), "degenerate" (its n = 24
+    case, an exact double eigenvalue), or "fock" (diagonal -20,
+    off-diagonal N(0, 18), the packed-F class of tests/test_torch_sp2.py).
+    At n = 128 a dense matrix's Gershgorin shift is ~30 max|A|, and e =
+    sigma - |g| carries the f32 rounding of that shift, close to the 5e-4
+    max|A| bound; the Fock class keeps the shift at ~14 max|A|."""
     rng = np.random.RandomState(seed)
     if kind == "degenerate":
         Q, _ = np.linalg.qr(rng.randn(B, n, n))
@@ -611,6 +724,8 @@ def sym_case(B, n, seed, kind="dense"):
     else:
         A = 5.0 * rng.randn(B, n, n)
     A = 0.5 * (A + np.swapaxes(A, 1, 2))
+    if kind == "mixed":
+        A[1::2] *= np.eye(n)
     return torch.tensor(A, dtype=torch.float32, device=DEV)
 
 
@@ -644,22 +759,34 @@ def eigh_stats(A):
                     - occ_projector(vr, occ)).abs().amax((1, 2)),
         "off": resid.double(),
     }
-    return st, sweeps, bool(torch.equal(sweeps, sr))
+    n_diff = int((e != er).sum().item() + (v != vr).sum().item())
+    return st, sweeps, bool(torch.equal(sweeps, sr)), n_diff
 
 
 def phase_k2_parity():
     from pyseqm_tpu_torch.ops import density, eigh_kernel
     worst = 0.0
+    # the warp kernel at n = 2, 4, 8, 16 (several molecules per warp), 24
+    # (padded to 32) and 32; the block kernel at 128; B = 7 leaves the
+    # last warp or block part empty
     for B, n, seed, kind in ((NMOL, 16, 10, "dense"), (7, 16, 11, "dense"),
+                             (7, 2, 20, "dense"), (7, 4, 21, "dense"),
+                             (7, 8, 22, "dense"), (7, 8, 23, "mixed"),
+                             (7, 16, 24, "mixed"), (7, 24, 25, "dense"),
                              (NMOL, 32, 12, "dense"), (7, 32, 13, "dense"),
+                             (7, 32, 26, "mixed"),
                              (7, 128, 17, "dense"), (7, 128, 14, "fock"),
                              (8, 24, 15, "degenerate")):
-        st, sweeps, same = eigh_stats(sym_case(B, n, seed, kind))
+        st, sweeps, same, n_diff = eigh_stats(sym_case(B, n, seed, kind))
         line = " | ".join(f"{k} {fmt(v)}" for k, v in st.items())
         print(f"[8 K2 eigh B={B} n={n} {kind}] "
               f"{line} | sweeps mean {sweeps.double().mean().item():.2f} "
-              f"max {int(sweeps.max().item())}, same as plain {same}",
-              flush=True)
+              f"max {int(sweeps.max().item())} min "
+              f"{int(sweeps.min().item())}, same as plain {same} | "
+              f"elements of e, v differing from plain {n_diff} of "
+              f"{B * n * (n + 1)}", flush=True)
+        check(same, f"K2 sweeps differ from the plain version at B={B} "
+              f"n={n} {kind}")
         for k, lim in (("exact", TOL_EIG_EXACT), ("resid", TOL_EIG_EXACT),
                        ("orth", TOL_ORTH), ("plain_e", TOL_EIG_PLAIN),
                        ("plain_P", TOL_KERNEL),
@@ -717,7 +844,7 @@ def phase_scf_eigh(card):
         NMOL, torch.float32, 1.0e-5, 1.0e-4, use_sp2=False)
     out = pt.energy(const, tables, cfg, species, coords)     # warm-up
     sync()
-    eigh_kernel.launches = 0
+    k2_reset()
     density.rescued = 0
     k3_reset()
     solves, nc = [], 0
@@ -735,6 +862,7 @@ def phase_scf_eigh(card):
         sync()
         dt = time.perf_counter() - t0
     launches, rescued = eigh_kernel.launches, density.rescued
+    K2_BY_N["scf_eigh"] = dict(eigh_kernel.launches_by_n)
     k3 = k3_counts()
     mps = SCF_REPEATS * NMOL / dt
     polish = 8                           # SCFConfig.polish_iters auto, f32
@@ -761,12 +889,13 @@ def phase_eig_outputs():
     const, tables, cfg, species, coords = headline_setup(
         NMOL, torch.float32, 1.0e-5, 1.0e-4, use_sp2=False)
     cfg = dataclasses.replace(cfg, eig=True)
-    eigh_kernel.launches = 0
+    k2_reset()
     k3_reset()
     with Tap(density, "eigh_batched_checked") as k2_in:
         f, out = pt.force(const, tables, cfg, species, coords)
         sync()
     launches = eigh_kernel.launches
+    K2_BY_N["eig_true"] = dict(eigh_kernel.launches_by_n)
     k3 = k3_counts()
     A = species.shape[1]
     check(tuple(out.e.shape) == (NMOL, 4 * A)
@@ -816,7 +945,7 @@ def phase_xl_eigh(card):
     const, tables, cfg, species, coords = headline_setup(
         NMOL, torch.float32, 1.0e-5, 1.0e-4, use_sp2=False)
     md = XLBOMD(const, tables, cfg, MDConfig(timestep=0.4), k=5)
-    eigh_kernel.launches = 0
+    k2_reset()
     k3_reset()
     state = md.initialize(species, coords,
                           velocities=torch.zeros_like(coords),
@@ -835,6 +964,7 @@ def phase_xl_eigh(card):
     dt = time.perf_counter() - t0
     n_steps = eigh_kernel.launches - n0
     launches = eigh_kernel.launches
+    K2_BY_N["xlbomd_eigh"] = dict(eigh_kernel.launches_by_n)
     k3 = k3_counts()
     per_mol = (torch.stack(etots).double() - e_ref[None]).abs().amax(dim=0)
     finite = bool(torch.isfinite(state.coordinates).all()
@@ -862,11 +992,11 @@ def phase_xl_eigh(card):
 
 
 def k2_timing(A, tag):
-    """K2 on one path input: the kernel launch alone and its plain version
-    (the sweeps, from the shifted G0), each against the kernel's bound;
-    the whole eigh_jacobi wrapper (shift, padding, kernel, sort and
-    normalisation) against torch.linalg.eigh, which computes the same
-    function."""
+    """K2 on one path input: the kernel alone (device time; eigh_jacobi is
+    one launch, phase 2) against its bound, which counts the folded shift,
+    sort and normalisation too; the whole eigh_jacobi call with its host
+    time (median_ms) and the plain version beside torch.linalg.eigh, which
+    computes the same function, timed the same way."""
     from pyseqm_tpu_torch.ops import eigh_kernel as ek
     A = A.contiguous()
     B, n0, _ = A.shape
@@ -878,38 +1008,49 @@ def k2_timing(A, tag):
     nrm = A.abs().max().item()
     check(err <= TOL_EIG_PLAIN * nrm, f"K2 vs plain on the {tag} input: "
           f"{err} (max|A| {nrm})")
-    G0, _ = ek._shift_and_pad(A)
-    ms = median_ms(lambda: ek._sweeps_kernel(G0, ek.OFF_TOL, ek.MAX_SWEEPS,
-                                             False), 20)
-    plain_ms = median_ms(lambda: ek._sweeps_reference(G0, ek.OFF_TOL,
-                                                      ek.MAX_SWEEPS), 3)
+    ms = device_ms(lambda: ek.eigh_jacobi(A, with_resid=True), 20)
     wrapper_ms = median_ms(lambda: ek.eigh_jacobi(A, with_resid=True), 20)
+    plain_ms = median_ms(lambda: ek.eigh_jacobi_reference(A, with_resid=True),
+                         3)
     lib_ms = median_ms(lambda: torch.linalg.eigh(A), 5)
     sw = sweeps.double()
-    n = G0.shape[-1]
+    n = ek.next_pow2(n0)
     # per sweep (n - 1) rounds of n/2 pairs.  A pair needs gamma once (n
     # FMA = 2n), both alphas (4n), both column updates (6n) and one
     # rotation (~20 scalar operations; both members of the pair compute
-    # the same gamma and rotation, which counts once); then the final
-    # column norms (2n^2 + n).  Bytes: G0 read, G, the norms and resid
-    # written, once each
+    # the same gamma and rotation, which counts once).  Folded around the
+    # sweeps: the shift (n0^2 additions, ~8 n0 per column and molecule),
+    # the final column norms (2n^2 + n), e (n), the rank (n^2
+    # comparisons) and the normalisation (n0^2 divisions).  Bytes: A
+    # read, e, v and resid written, once each
     flops = (sw.sum().item() * (n - 1) * (n // 2) * (12 * n + 20)
-             + B * (2 * n * n + n))
-    nbytes = 4 * B * (2 * n * n + n + 1)
+             + B * (n0 * n0 + 8 * n0 + 3 * n * n + 2 * n + n0 * n0))
+    nbytes = 4 * B * (2 * n0 * n0 + n0 + 1)
     t_flop, t_byte = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
     bound = max(t_flop, t_byte)
     print(f"[12 K2 timing, {tag} input B={B} n={n0}] kernel {ms:.4f} ms "
-          f"(median of 20, launch alone), plain {plain_ms:.3f} ms | bound "
-          f"{bound:.4f} ms (FP32 {t_flop:.4f}, bytes {t_byte:.4f}), kernel "
-          f"at {100 * bound / ms:.1f}% of it | wrapper {wrapper_ms:.4f} ms "
-          f"against torch.linalg.eigh {lib_ms:.3f} ms | sweeps mean "
-          f"{sw.mean().item():.2f} max {int(sw.max().item())} | kernel vs "
-          f"plain {err:.2e} | resid max {resid.max().item():.2e}",
-          flush=True)
+          f"(median of 20, device time alone), "
+          f"plain {plain_ms:.3f} ms | bound {bound:.4f} ms (FP32 "
+          f"{t_flop:.4f}, bytes {t_byte:.4f}), kernel at "
+          f"{100 * bound / ms:.1f}% of it | whole call with host time "
+          f"{wrapper_ms:.4f} ms against torch.linalg.eigh {lib_ms:.3f} ms "
+          f"| sweeps mean {sw.mean().item():.2f} max "
+          f"{int(sw.max().item())} | kernel vs plain {err:.2e} | resid max "
+          f"{resid.max().item():.2e}", flush=True)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "wrapper_ms": wrapper_ms, "bound_ms": bound,
             "bound_by": "operations" if t_flop >= t_byte else "bytes",
             "mean_sweeps": sw.mean().item(), "max_abs_err": err}
+
+
+# K2 launches of each path by padded matrix size (the kernel variant)
+K2_BY_N = {}
+
+
+def k2_reset():
+    from pyseqm_tpu_torch.ops import eigh_kernel
+    eigh_kernel.launches = 0
+    eigh_kernel.launches_by_n = {}
 
 
 def k3_counts():
@@ -1018,7 +1159,7 @@ def phase_flat_default(card):
           f"{type(out.w).__name__}, not the flat pair list")
     hf_first = out.Hf
     sync()
-    eigh_kernel.launches = 0
+    k2_reset()
     k3_reset()
     solves, nc = [], 0
     with Tap(scf, "sym_eig") as tap, k3_tap() as k3_in:
@@ -1034,6 +1175,7 @@ def phase_flat_default(card):
         sync()
         dt = time.perf_counter() - t0
     launches, k3 = eigh_kernel.launches, k3_counts()
+    K2_BY_N["flat_default"] = dict(eigh_kernel.launches_by_n)
     mps = SCF_REPEATS * NMOL / dt
     polish = 8
     print(f"[14 flat default] {NMOL} x {MOLSIZE} AM1 f32 eps 1e-5, no "
@@ -1218,9 +1360,10 @@ def phase_nanostar_dense(card, packed_ref):
 
 def k3_timing(ri, U, X, perm, tag):
     """K3 on one path's own operands (the exchange apply of its Fock
-    build): each kernel launch alone (median of 20, CUDA events) against
-    its bound, the plain version's forward and autograd backward as the
-    reference point (no PyTorch call computes this function)."""
+    build): each kernel launch alone (median of 20, device time) against
+    its bound, beside the reading with host time (median_ms);
+    the plain version's forward and autograd backward as the reference
+    point (no PyTorch call computes this function)."""
     from pyseqm_tpu_torch.ops import wapply_kernel as wk
     batch = torch.broadcast_shapes(ri.shape[:-1], U.shape[:-2],
                                    X.shape[:-2])
@@ -1234,9 +1377,10 @@ def k3_timing(ri, U, X, perm, tag):
     check(max(rel) <= TOL_K3[X.dtype], f"K3 vs plain on the {tag} input: "
           f"{rel}")
     need = (True, True, True)
-    ms = {"fwd": median_ms(lambda: wk._launch_fwd(ri, U, X, perm), 20),
-          "bwd": median_ms(lambda: wk._launch_bwd(ri, U, X, Yb, perm, need),
-                           20)}
+    launch = {"fwd": lambda: wk._launch_fwd(ri, U, X, perm),
+              "bwd": lambda: wk._launch_bwd(ri, U, X, Yb, perm, need)}
+    ms = {k: device_ms(f, 20) for k, f in launch.items()}
+    host_ms = {k: median_ms(f, 20) for k, f in launch.items()}
     leaves = [t.clone().requires_grad_(True) for t in (ri, U, X)]
     yr = wk.w_apply_reference(*leaves, perm)
     plain = {"fwd": median_ms(lambda: wk.w_apply_reference(ri, U, X, perm),
@@ -1250,12 +1394,13 @@ def k3_timing(ri, U, X, perm, tag):
         t_byte = C * (nin + nout) * size / PEAK_BYTES * 1e3
         t_flop = C * flops / PEAK_FP32 * 1e3
         bound = max(t_byte, t_flop)
-        out[kind] = {"ms": ms[kind], "plain_ms": plain[kind],
-                     "bound_ms": bound,
+        out[kind] = {"ms": ms[kind], "host_ms": host_ms[kind],
+                     "plain_ms": plain[kind], "bound_ms": bound,
                      "bound_by": "operations" if t_flop > t_byte else "bytes",
                      "cells": C, "max_abs_err": absmax}
         print(f"[17 K3 {kind} timing, {tag} C={C} perm {perm}] kernel "
-              f"{ms[kind]:.4f} ms (median of 20, launch alone), plain "
+              f"{ms[kind]:.4f} ms (median of 20, device time alone; with "
+              f"host time {host_ms[kind]:.4f} ms), plain "
               f"{plain[kind]:.3f} ms | bound {bound:.4f} ms (bytes "
               f"{t_byte:.4f}, FP32 {t_flop:.4f}), kernel at "
               f"{100 * bound / ms[kind]:.1f}% of it | kernel vs plain "
@@ -1314,6 +1459,7 @@ def main():
     card = phase_card()
     with Phase("2 build"):
         ptxas = phase_build()
+        timer_check = phase_profiler()
     with Phase("3 K1 parity"):
         worst = phase_kernel_parity()
     with Phase("13 K3 parity"):
@@ -1349,6 +1495,8 @@ def main():
     with Phase("14 flat default"):
         flat, k3_flat_in = phase_flat_default(card)
     by_path["flat_default"] = flat["k2_launches"]
+    check(by_path["flat_default"] > 0, "K2 was not launched on the "
+          "flat_default path")
     torch.cuda.empty_cache()
     with Phase("15 nanostar packed"):
         nano_pk, nano_ref, k3_nano_pk_in = phase_nanostar_packed(card)
@@ -1387,14 +1535,21 @@ def main():
                                       "bound_by", "library_ms", "wrapper_ms",
                                       "mean_sweeps")},
           "launches_by_path": by_path,
+          "launches_by_n": {str(n): sum(d.get(n, 0) for d in K2_BY_N.values())
+                            for n in sorted({n for d in K2_BY_N.values()
+                                             for n in d})},
+          "launches_by_path_and_n": K2_BY_N,
+          "ptxas": ptxas["eigh"],
           "phases": ["8 parity", "9 scf-eigh", "10 eig=True",
                      "11 xlbomd-eigh", "12 timing", "14 flat default"]}
     k1["launches_by_path"] = {"xlbomd_sp2": launches}
+    k1["ptxas"] = ptxas["sp2"]
     k3f = k3_entry("wapply_fwd", "fwd", "tools/wapply_pallas.py:181",
                    {p: n[0] for p, n in k3_paths.items()}, k3_t, worst3)
     k3b = k3_entry("wapply_bwd", "bwd", "tools/wapply_pallas.py:199",
                    {p: n[1] for p, n in k3_paths.items()}, k3_t, worst3)
-    k3f["ptxas"] = ptxas
+    k3f["ptxas"] = ptxas["wapply"]
+    k3f["timer_cross_check"] = timer_check
     k3f["launches_per_xl_step"], k3b["launches_per_xl_step"] = k3_step
     print(json.dumps({"main_path": {"steps_per_s": sps,
                                     "step_breakdown_ms": parts},

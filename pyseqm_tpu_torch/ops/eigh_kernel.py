@@ -12,17 +12,18 @@ sweeps ran, and reads e = sigma - |g_j| (ascending) and v = g_j / |g_j|.
 The lowest eigenvalues of A get the largest column norms, hence the best
 relative accuracy, where the density needs it.
 
-What bounds it on an H100, and what the design does about it: see the
-note at the top of ``csrc/eigh.cu`` (FP32- and latency-bound at n = 16
-and 32; one block per molecule, one thread per column, G double-buffered
-in shared memory, per-molecule exit).
-
-The shift, the padding, the sort and the normalisation stay plain torch
-around the kernel.  ``eigh_jacobi`` launches the kernel for CUDA tensors
-and raises if the build or the launch fails; for CPU tensors it runs the
-plain version, which repeats the kernel's arithmetic step by step,
-including each molecule's own exit.  ``MAX_SWEEPS`` and ``OFF_TOL`` are
-read at call time.
+On CUDA, ``eigh_jacobi`` is one launch: the kernel takes A and does the
+shift, the padding, the sweeps, the sort and the normalisation.  Two
+variants (see the note at the top of ``csrc/eigh.cu``): for n <= 32 a
+warp kernel, one molecule per group of n lanes, columns in registers,
+partner columns by ``__shfl_xor_sync``, no shared memory and no block
+barrier; for n = 64 and 128 a block kernel, one thread per column, G
+double-buffered in shared memory.  Both are FP32-bound and each molecule
+leaves on its own.  ``eigh_jacobi`` raises if the build or the launch
+fails; for CPU tensors it runs the plain version, which repeats the
+kernel's arithmetic step by step: the sequential row sums of the shift,
+each molecule's own exit, and the sort as a rank per column.
+``MAX_SWEEPS`` and ``OFF_TOL`` are read at call time.
 """
 from __future__ import annotations
 
@@ -43,8 +44,10 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
-# launches of the CUDA kernel (plain integer; reset by callers that count)
+# launches of the CUDA kernel (plain integers; reset by callers that
+# count): in all, and by the padded size n (n <= 32 the warp kernel)
 launches = 0
+launches_by_n: dict = {}
 
 
 def _load():
@@ -75,33 +78,57 @@ def _check(A: torch.Tensor, dtypes=(torch.float32,)):
         raise ValueError("eigh_jacobi needs a contiguous A")
 
 
-def _shift_and_pad(A: torch.Tensor):
-    """(G0, sigma): G0 = sigma I - A padded to a power of two, the padding
-    diagonal of A at sigma (so G0's padding block is zero)."""
-    B, n0, _ = A.shape
-    n = next_pow2(n0)
+def gershgorin_shift(A: torch.Tensor) -> torch.Tensor:
+    """sigma (B,) as the kernel forms it: row j's sum of |a_ij| read in
+    order i = 0, 1, ... down column j (A is symmetric), one rounding per
+    addition; r_j = that sum - |a_jj|; h1 = min(a_jj - r_j), hN =
+    max(a_jj + r_j); sigma = hN + 0.05 max(hN - h1, 1)."""
+    absA = torch.abs(A)
+    s = torch.zeros_like(A[:, 0])
+    for i in range(A.shape[1]):
+        s = s + absA[:, i]
     aii = torch.diagonal(A, dim1=-2, dim2=-1)
-    ri = torch.abs(A).sum(dim=-1) - torch.abs(aii)
-    h1 = (aii - ri).min(dim=-1).values
-    hN = (aii + ri).max(dim=-1).values
-    spread = torch.clamp(hN - h1, min=1.0)
-    sigma = hN + 0.05 * spread
-    eye = torch.eye(n, dtype=A.dtype, device=A.device)
-    if n > n0:
-        A = torch.nn.functional.pad(A, (0, n - n0, 0, n - n0))
-        padd = (torch.arange(n, device=A.device) >= n0).to(A.dtype)
-        A = A + eye[None] * (padd[None, :] * sigma[:, None])[:, None, :]
-    G0 = eye[None] * sigma[:, None, None] - A
-    return G0.contiguous(), sigma
+    r = s - torch.abs(aii)
+    h1 = (aii - r).amin(dim=-1)
+    hN = (aii + r).amax(dim=-1)
+    return hN + 0.05 * torch.clamp(hN - h1, min=1.0)
+
+
+def _shift_and_pad(A: torch.Tensor):
+    """(G0, sigma): G0 = sigma I - A on the n0 x n0 block of the power of
+    two n, zero on the padding (A's padding diagonal at sigma)."""
+    B, n0, _ = A.shape
+    sigma = gershgorin_shift(A)
+    n = next_pow2(n0)
+    G0 = A.new_zeros((B, n, n))
+    eye = torch.eye(n0, dtype=A.dtype, device=A.device)
+    G0[:, :n0, :n0] = eye[None] * sigma[:, None, None] - A
+    return G0, sigma
+
+
+def sort_rank(e: torch.Tensor) -> torch.Tensor:
+    """(B, n) int64: the position of each column once sorted, rank_j =
+    #{k : e_k < e_j, or e_k = e_j and k < j}, NaN after everything (the
+    order of torch.argsort(stable=True), formed as the kernel forms it)."""
+    n = e.shape[-1]
+    ek, ej = e[:, :, None], e[:, None, :]          # [b, k, j]
+    idx = torch.arange(n, device=e.device)
+    k_first = idx[:, None] < idx[None, :]
+    nk, nj = torch.isnan(ek), torch.isnan(ej)
+    before = torch.where(nk | nj, ~nk | (nj & k_first),
+                         (ek < ej) | ((ek == ej) & k_first))
+    return before.sum(dim=1)
 
 
 def _sort(G, nrm, sigma, n0):
-    """(e, v) ascending from the final columns, cut back to n0."""
+    """(e, v) ascending from the final columns, cut back to n0: column j
+    goes to position sort_rank(e)_j."""
     e_raw = sigma[:, None] - nrm
-    order = torch.argsort(e_raw, dim=-1, stable=True)
-    e = torch.take_along_dim(e_raw, order, dim=-1)
-    v = torch.take_along_dim(G / torch.clamp(nrm, min=1.0e-20)[:, None, :],
-                             order[:, None, :], dim=-1)
+    rank = sort_rank(e_raw)
+    v_raw = G / torch.clamp(nrm, min=1.0e-20)[:, None, :]
+    e = torch.empty_like(e_raw).scatter_(1, rank, e_raw)
+    v = torch.empty_like(v_raw).scatter_(
+        2, rank[:, None, :].expand_as(v_raw), v_raw)
     return e[:, :n0], v[:, :n0, :n0]
 
 
@@ -164,25 +191,28 @@ def _sweeps_reference(G0, off_tol: float, max_sweeps: int):
     return G, nrm, off_max, sweeps
 
 
-def _sweeps_kernel(G0, off_tol: float, max_sweeps: int, want_sweeps: bool):
+def _launch(A, want_sweeps: bool):
+    """The kernel on A: (e, v, resid, sweeps or None), one launch."""
     global launches
     lib = _load()
-    B, n, _ = G0.shape
-    G = torch.empty_like(G0)
-    nrm = torch.empty((B, n), dtype=G0.dtype, device=G0.device)
-    resid = torch.empty((B,), dtype=G0.dtype, device=G0.device)
-    sweeps = (torch.empty((B,), dtype=torch.int32, device=G0.device)
+    B, n0, _ = A.shape
+    e = torch.empty((B, n0), dtype=A.dtype, device=A.device)
+    v = torch.empty_like(A)
+    resid = torch.empty((B,), dtype=A.dtype, device=A.device)
+    sweeps = (torch.empty((B,), dtype=torch.int32, device=A.device)
               if want_sweeps else None)
-    with torch.cuda.device(G0.device):
-        stream = torch.cuda.current_stream(G0.device).cuda_stream
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream(A.device).cuda_stream
         rc = lib.eigh_jacobi_f32(
-            G0.data_ptr(), G.data_ptr(), nrm.data_ptr(), resid.data_ptr(),
-            sweeps.data_ptr() if sweeps is not None else None, B, n,
-            float(off_tol), float(off_tol * 0.01), int(max_sweeps), stream)
+            A.data_ptr(), e.data_ptr(), v.data_ptr(), resid.data_ptr(),
+            sweeps.data_ptr() if sweeps is not None else None, B, n0,
+            float(OFF_TOL), float(OFF_TOL * 0.01), int(MAX_SWEEPS), stream)
     if rc != 0:
         raise RuntimeError(f"eigh kernel launch failed: CUDA error {rc}")
     launches += 1
-    return G, nrm, resid, sweeps
+    n = next_pow2(n0)
+    launches_by_n[n] = launches_by_n.get(n, 0) + 1
+    return e, v, resid, sweeps
 
 
 def _outputs(e, v, resid, sweeps, with_resid, return_sweeps):
@@ -209,8 +239,9 @@ def eigh_jacobi(A: torch.Tensor, with_resid: bool = False,
                 return_sweeps: bool = False):
     """Batched eigendecomposition, ascending: (e (B, n), v (B, n, n)) with
     A v_j = e_j v_j, as torch.linalg.eigh lays them out.  A (B, n, n)
-    float32 contiguous, n <= 128 after padding to a power of two.  The
-    CUDA kernel for CUDA tensors, the plain version for CPU tensors.
+    float32 contiguous, n <= 128 after padding to a power of two.  One
+    launch of the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors.
 
     ``with_resid`` appends the (B,) convergence residual, the last sweep's
     largest gamma^2 / (alpha beta): > OFF_TOL means that molecule stopped
@@ -221,10 +252,7 @@ def eigh_jacobi(A: torch.Tensor, with_resid: bool = False,
         return eigh_jacobi_reference(A, with_resid, return_sweeps)
     if A.device.type != "cuda":
         raise ValueError(f"eigh_jacobi runs on cuda or cpu, not {A.device}")
-    G0, sigma = _shift_and_pad(A)
-    G, nrm, resid, sweeps = _sweeps_kernel(G0, OFF_TOL, MAX_SWEEPS,
-                                           return_sweeps)
-    e, v = _sort(G, nrm, sigma, A.shape[-1])
+    e, v, resid, sweeps = _launch(A, return_sweeps)
     return _outputs(e, v, resid, sweeps, with_resid, return_sweeps)
 
 

@@ -8,14 +8,21 @@ e0 < eps and not e0 < e2 (eps floored at 1e-5); then one McWeeny step
 3X^2 - 2X^3 runs and the result is 2X.
 
 What bounds it on an H100, and what the design does about it: see the note
-at the top of ``csrc/sp2.cu`` (FP32-FMA bound at the packed size n = 16;
-one block per molecule, X and X^2 in shared memory, per-molecule exit).
+at the top of ``csrc/sp2.cu`` (FP32-FMA bound at the packed size n = 16).
+Two variants, one launch per call: for n <= 32 a warp kernel, one molecule
+per 16-lane half-warp (n <= 16) or per warp (n <= 32), lane j holding
+column j of X in registers, the row operands of X^2 broadcast from the
+group's own slice of shared memory, tr(X^2) a shuffle reduction, only
+``__syncwarp``; for 32 < n <= 128 a block kernel, one block per molecule,
+X and X^2 in shared memory.  Both leave each molecule's loop on its own
+exit test.  The kernel sums in another order than the plain version, so
+the two agree to tolerance (5e-5 on the card), not bit for bit.
 
 The kernel builds at first use with nvcc into ``_build/`` next to this
 package and is loaded with ctypes (``ops/cuda_build.py``).  ``sp2_purify``
 launches it for CUDA tensors and raises if the build or the launch fails;
 for CPU tensors it runs ``sp2_purify_reference``, which repeats the
-kernel's arithmetic step by step.
+kernel's algorithm step by step.
 """
 from __future__ import annotations
 

@@ -32,28 +32,35 @@ def cuda():
     return torch.device("cuda")
 
 
-def _gap_case(B, n, nocc, seed):
-    rng = np.random.RandomState(seed)
-    Q, _ = np.linalg.qr(rng.randn(B, n, n))
-    evals = np.concatenate([-10.0 + 2.0 * rng.rand(B, nocc),
-                            2.0 + 6.0 * rng.rand(B, n - nocc)], axis=1)
-    F = np.einsum('bik,bk,bjk->bij', Q, evals, Q)
-    F = 0.5 * (F + np.swapaxes(F, -1, -2))
-    P = 2.0 * np.einsum('bik,k,bjk->bij', Q,
-                        (np.arange(n) < nocc).astype(np.float64), Q)
-    aii = np.diagonal(F, axis1=-2, axis2=-1)
-    ri = np.abs(F).sum(-1) - np.abs(aii)
-    h1, hN = (aii - ri).min(-1), (aii + ri).max(-1)
-    a0 = (np.eye(n)[None] * hN[:, None, None] - F) / (hN - h1)[:, None, None]
-    return a0.astype(np.float32), np.full((B,), float(nocc), np.float32), P
+def _gap_case(B, n, nocc, seed, device):
+    """Pre-scaled SP2 inputs from symmetric matrices with a clean gap (the
+    normal draws from a numpy seed, the algebra in float64 on device) and
+    the exact density."""
+    rng = np.random.default_rng(seed)
+    X = torch.from_numpy(rng.standard_normal((B, n, n), dtype=np.float32))
+    Q, _ = torch.linalg.qr(X.to(device=device, dtype=torch.float64))
+    u = torch.from_numpy(rng.random((B, n))).to(device)
+    evals = torch.where(torch.arange(n, device=device) < nocc,
+                        -10.0 + 2.0 * u, 2.0 + 6.0 * u)
+    F = (Q * evals[:, None, :]) @ Q.transpose(1, 2)
+    F = 0.5 * (F + F.transpose(1, 2))
+    occ = (torch.arange(n, device=device) < nocc).double()
+    P = 2.0 * (Q * occ) @ Q.transpose(1, 2)
+    aii = torch.diagonal(F, dim1=-2, dim2=-1)
+    ri = F.abs().sum(-1) - aii.abs()
+    h1, hN = (aii - ri).amin(-1), (aii + ri).amax(-1)
+    eye = torch.eye(n, dtype=torch.float64, device=device)
+    a0 = (eye * hN[:, None, None] - F) / (hN - h1)[:, None, None]
+    return (a0.float(), torch.full((B,), float(nocc), device=device), P)
 
 
-@pytest.mark.parametrize("B,n,nocc", [(10240, 16, 5), (7, 16, 5),
-                                      (7, 32, 11), (7, 128, 40)])
+# n <= 16: the half-warp kernel (8, 12 with padded lanes); 17-32: the warp
+# kernel; 128: the block kernel.  B = 7 leaves a block part empty
+@pytest.mark.parametrize("B", [7, 10240])
+@pytest.mark.parametrize("n,nocc", [(8, 3), (12, 4), (16, 5), (24, 8),
+                                    (32, 11), (128, 40)])
 def test_kernel_matches_plain_and_exact(cuda, B, n, nocc):
-    a0, nocc_f, P_exact = _gap_case(B, n, nocc, 7)
-    a = torch.from_numpy(a0).to(cuda)
-    o = torch.from_numpy(nocc_f).to(cuda)
+    a, o, P_exact = _gap_case(B, n, nocc, 7, cuda)
     before = sp2_kernel.launches
     P, iters = sp2_kernel.sp2_purify(a, o, 1.0e-5, return_iters=True)
     torch.cuda.synchronize()
@@ -63,24 +70,40 @@ def test_kernel_matches_plain_and_exact(cuda, B, n, nocc):
     # f32 SP2: the bounds of the JAX kernel's parity tests (5e-5); the
     # kernel and its plain version sum in different orders
     assert (P - Pr).abs().max().item() < 5.0e-5
-    Pn = P.double().cpu().numpy()
-    assert np.abs(Pn - P_exact).max() < 5.0e-5
-    half = Pn / 2.0
-    assert np.abs(half @ half - half).max() < 5.0e-5
+    Pd = P.double()
+    assert (Pd - P_exact).abs().max().item() < 5.0e-5
+    half = Pd / 2.0
+    assert (half @ half - half).abs().max().item() < 5.0e-5
+    trace = torch.diagonal(Pd, dim1=-2, dim2=-1).sum(-1)
+    assert (trace - 2.0 * o.double()).abs().max().item() < 1.0e-4
     assert ((iters > 0) & (iters <= sp2_kernel.MAX_ITER)).all()
 
 
-@pytest.mark.parametrize("B,n,kind", [(10240, 16, "dense"), (7, 32, "dense"),
-                                      (7, 128, "dense"), (7, 128, "fock"),
-                                      (7, 24, "dense")])
-def test_eigh_kernel_matches_plain_and_exact(cuda, B, n, kind):
+def _sym_case(B, n, kind):
     rng = np.random.RandomState(n)
     X = rng.randn(B, n, n)
     # dense random as in test_kernels.py (at n = 128 its Gershgorin shift,
-    # ~30 max|A|, puts f32 eigenvalues close to the 5e-4 max|A| bound), or
-    # the diagonally dominant packed-F class of test_torch_sp2
-    X = 5.0 * X if kind == "dense" else 6.0 * X - 40.0 * np.eye(n)
-    A = (0.5 * (X + np.swapaxes(X, 1, 2))).astype(np.float32)
+    # ~30 max|A|, puts f32 eigenvalues close to the 5e-4 max|A| bound), the
+    # diagonally dominant packed-F class of test_torch_sp2, or "mixed":
+    # dense with every other matrix cut to its diagonal (one sweep), so
+    # molecules that share a warp leave at different sweeps
+    X = 6.0 * X - 40.0 * np.eye(n) if kind == "fock" else 5.0 * X
+    A = 0.5 * (X + np.swapaxes(X, 1, 2))
+    if kind == "mixed":
+        A[1::2] *= np.eye(n)
+    return A.astype(np.float32)
+
+
+# the warp kernel at n = 2-32 (n/32 of a warp per molecule; 24 padded to
+# 32), the block kernel at 128; B = 7 leaves the last warp part empty
+@pytest.mark.parametrize("B,n,kind", [(10240, 16, "dense"), (7, 32, "dense"),
+                                      (7, 128, "dense"), (7, 128, "fock"),
+                                      (7, 24, "dense"), (7, 2, "dense"),
+                                      (7, 4, "dense"), (7, 8, "dense"),
+                                      (7, 8, "mixed"), (7, 16, "mixed"),
+                                      (7, 32, "mixed")])
+def test_eigh_kernel_matches_plain_and_exact(cuda, B, n, kind):
+    A = _sym_case(B, n, kind)
     a = torch.from_numpy(A).to(cuda)
     before = eigh_kernel.launches
     e, v, resid, sweeps = eigh_kernel.eigh_jacobi(a, with_resid=True,
@@ -101,12 +124,34 @@ def test_eigh_kernel_matches_plain_and_exact(cuda, B, n, kind):
     pr = np.einsum('bik,bjk->bij', vrn[..., :occ], vrn[..., :occ])
     assert np.abs(pk - pr).max() < 5.0e-5
     assert torch.equal(sweeps, sr)
+    if kind == "mixed":
+        assert (sweeps[1::2] == 1).all() and (sweeps[::2] > 1).all()
     # the bounds of test_kernels.py against exact
     e_ex = np.linalg.eigvalsh(An)
     assert np.abs(en - e_ex).max() <= 5.0e-4 * nrm
     assert np.abs(An @ vn - en[:, None, :] * vn).max() <= 5.0e-4 * nrm
     assert np.abs(np.swapaxes(vn, 1, 2) @ vn - np.eye(n)).max() <= 1.0e-5
     assert (resid <= eigh_kernel.OFF_TOL).all()
+
+
+@pytest.mark.parametrize("n", [16, 24, 128])
+def test_eigh_jacobi_is_one_launch(cuda, n):
+    """On CUDA the shift, padding, sweeps, sort and normalisation are one
+    kernel launch."""
+    from torch.profiler import ProfilerActivity, profile
+    a = torch.from_numpy(_sym_case(64, n, "dense")).to(cuda)
+    eigh_kernel.eigh_jacobi(a)          # build and load outside the trace
+    torch.cuda.synchronize()
+    before = eigh_kernel.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eigh_kernel.eigh_jacobi(a, with_resid=True)
+        torch.cuda.synchronize()
+    kernels = [ev.name for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "eigh" in kernels[0], kernels
+    assert eigh_kernel.launches == before + 1
+    assert eigh_kernel.launches_by_n[eigh_kernel.next_pow2(n)] >= 1
 
 
 @pytest.mark.parametrize("use_sp2", [True, False])

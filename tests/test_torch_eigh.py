@@ -123,6 +123,59 @@ def test_wrapper_checks_and_dispatch():
         eigh_jacobi(A[:, :, :4])
 
 
+def test_sort_rank_matches_stable_argsort():
+    """The kernel's sort, a rank per column, gives torch.argsort(stable=
+    True)'s order: on ties, on NaN (last), and on the padding columns of a
+    solve (norm 0, so e = sigma: after every real column)."""
+    rng = np.random.RandomState(12)
+    e = torch.from_numpy(rng.randint(0, 4, size=(64, 16)).astype(np.float32))
+    e[0, 3] = e[1, 0] = e[1, 9] = float("nan")
+    order = torch.argsort(e, dim=-1, stable=True)
+    pos = torch.empty_like(order).scatter_(
+        1, order, torch.arange(16).expand(64, 16).contiguous())
+    assert torch.equal(eigh_kernel.sort_rank(e), pos)
+
+    A = torch.from_numpy(_random_sym(6, 5, 2))
+    G0, sigma = eigh_kernel._shift_and_pad(A)
+    assert G0.shape == (6, 8, 8) and not G0[:, 5:].any()
+    assert not G0[:, :, 5:].any()
+    G, nrm, _, _ = eigh_kernel._sweeps_reference(
+        G0, eigh_kernel.OFF_TOL, eigh_kernel.MAX_SWEEPS)
+    e_raw = sigma[:, None] - nrm
+    assert torch.equal(e_raw[:, 5:], sigma[:, None].expand(6, 3))
+    order = torch.argsort(e_raw, dim=-1, stable=True)
+    assert (order[:, 5:] >= 5).all()
+    e5, v5 = eigh_kernel._sort(G, nrm, sigma, 5)
+    v_all = G / torch.clamp(nrm, min=1.0e-20)[:, None, :]
+    assert torch.equal(e5, torch.take_along_dim(e_raw, order, -1)[:, :5])
+    assert torch.equal(v5, torch.take_along_dim(
+        v_all, order[:, None, :], -1)[:, :5, :5])
+
+
+@pytest.mark.parametrize("n", [5, 16, 24])
+def test_shift_is_the_sequential_row_sum(n):
+    """sigma from row sums of |A| added in order, one float32 rounding per
+    addition, as the kernel adds them down its column."""
+    A = _random_sym(8, n, 4) * np.linspace(0.01, 100.0, n,
+                                           dtype=np.float32)[None, :, None]
+    A = 0.5 * (A + np.swapaxes(A, 1, 2))
+    s = np.zeros((8, n), np.float32)
+    for i in range(n):
+        s = s + np.abs(A[:, i, :])
+    aii = np.diagonal(A, axis1=1, axis2=2)
+    r = s - np.abs(aii)
+    h1, hN = (aii - r).min(-1), (aii + r).max(-1)
+    sigma = hN + np.float32(0.05) * np.maximum(hN - h1, np.float32(1.0))
+    assert sigma.dtype == np.float32
+    got = eigh_kernel.gershgorin_shift(torch.from_numpy(A)).numpy()
+    assert np.array_equal(got, sigma)
+    G0, sig = eigh_kernel._shift_and_pad(torch.from_numpy(A))
+    assert np.array_equal(sig.numpy(), sigma)
+    np.testing.assert_array_equal(
+        np.diagonal(G0.numpy(), axis1=1, axis2=2)[:, :n],
+        sigma[:, None] - aii)
+
+
 def test_rescue_after_one_sweep(monkeypatch):
     """MAX_SWEEPS forced to 1 (read at call time): the plain Jacobi flags
     molecules, the rescue re-solves exactly those with the exact eigh and
