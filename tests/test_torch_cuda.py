@@ -9,6 +9,8 @@ nor the JAX package, so they run where only PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -135,21 +137,27 @@ def test_eigh_kernel_matches_plain_and_exact(cuda, B, n, kind):
 
 
 @pytest.mark.parametrize("n", [16, 24, 128])
-def test_eigh_jacobi_is_one_launch(cuda, n):
+def test_eigh_jacobi_is_one_launch(cuda, n, tmp_path):
     """On CUDA the shift, padding, sweeps, sort and normalisation are one
-    kernel launch."""
-    from torch.profiler import ProfilerActivity, profile
+    kernel launch: the CUDA graph captured around one call holds one node,
+    the eigh kernel (a torch.profiler session can lose a ctypes launch's
+    device events; a captured graph cannot)."""
     a = torch.from_numpy(_sym_case(64, n, "dense")).to(cuda)
-    eigh_kernel.eigh_jacobi(a)          # build and load outside the trace
+    eigh_kernel.eigh_jacobi(a)          # build and load outside the capture
     torch.cuda.synchronize()
     before = eigh_kernel.launches
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    g = torch.cuda.CUDAGraph(keep_graph=True)   # kept for the dump
+    g.enable_debug_mode()
+    with torch.cuda.graph(g):
         eigh_kernel.eigh_jacobi(a, with_resid=True)
-        torch.cuda.synchronize()
-    kernels = [ev.name for ev in prof.events()
-               if ev.device_type == torch.autograd.DeviceType.CUDA]
-    assert len(kernels) == 1 and "eigh" in kernels[0], kernels
+    g.debug_dump(str(tmp_path / "graph.dot"))
+    g.reset()
+    text = (tmp_path / "graph.dot").read_text()
+    starts = [m.start() for m in re.finditer(         # node declarations
+        r'^"graph_\d+_node_\d+"\s*\[', text, re.M)]
+    nodes = [text[i:j] for i, j in zip(starts, starts[1:] + [len(text)])]
+    assert (len(nodes) == 1 and "KERNEL" in nodes[0]
+            and "eigh" in nodes[0]), [nd[:160] for nd in nodes]
     assert eigh_kernel.launches == before + 1
     assert eigh_kernel.launches_by_n[eigh_kernel.next_pow2(n)] >= 1
 
