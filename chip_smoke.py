@@ -10,16 +10,20 @@ line is printed):
    versions; TF32 off;
 2. build: compile every CUDA kernel (csrc/sp2.cu, csrc/eigh.cu,
    csrc/wapply.cu) from the sources in the checkout, one nvcc per source,
-   started together, and print ptxas's registers and spills per kernel;
-   then, under torch.profiler (first in the process): eigh_jacobi and
-   sp2_purify on CUDA are one device kernel per call, and the device-only
-   timer against the profiler's kernel time on a K3 forward;
+   started together, and print ptxas's registers and spills per kernel
+   (K3: one line per instantiation; the float32 ones must not spill);
+   then: eigh_jacobi, sp2_purify and the K3 forward and backward (each
+   perm) on CUDA are one device kernel per call (a captured CUDA graph),
+   and the device-only timer against torch.profiler's kernel time on a K3
+   forward;
 3. K1 (SP2) against its plain version and the exact density (f64 eigh) on
    the card, at the main path's shape and at n = 8, 12, 16, 24, 32
    (the warp kernel) and 128 (the block kernel);
 13. K3 (the fused two-electron apply, forward and backward) against its
-    plain version at every path's cell count, a ragged count and an
-    expanded X, three perms, float32 and float64;
+    plain version at every path's cell count, a ragged count, an
+    expanded X and operands that are views at an odd cell or element
+    offset (not 16-byte aligned: the kernels' plain-load path), three
+    perms, float32 and float64;
 4. the XL-SP2 path at full width: 10,240 molecules x 8 atoms, AM1 float32,
    one bootstrap SCF (DIIS, SP2) then XL-BOMD (k=5, 0.4 fs) through the
    entry points build -> XLBOMD.initialize -> XLBOMD.step: steps/s, kernel
@@ -61,8 +65,9 @@ line is printed):
     K3 on 884^2 cells, eigh at pack_orbitals = 1792): one force call, and
     both nanostar runs held to each other and to a float64 dense run;
 17. K3's time on each path's own inputs (device time alone, forward and
-    backward, beside the host-inclusive reading) against its bound and
-    its plain version;
+    backward, L2-warm and cold after a 256 MiB write, beside the
+    host-inclusive reading and the timer's floor, an empty launch) against
+    its bound and its plain version;
 18. a JSON line of every kernel with its launches, error and times against
     its bound; then the card; the elapsed time; then the result line.
 
@@ -121,8 +126,11 @@ K3_CELLS = {"headline packed XX": NMOL * 2 * 2, "nanostar packed XX": 294 ** 2,
             "ragged": 1001}
 # per cell: floats read and written, and floating-point operations
 # (csrc/wapply.cu: rotations 240, table 144 forward; 2 rotations in, the
-# table pass 432, dX 120, dU 468 backward)
+# table passes 432, dX 120, dU 468 backward).  The values the function
+# needs; the kernels move U whole (70 read forward, 70 read and 54
+# written backward), which this yardstick leaves out, as PR 4's did
 K3_IO = {"fwd": (47, 16, 384), "bwd": (63, 47, 1260)}
+FLUSH_BYTES = 256 * 2 ** 20     # written before each cold K3 call
 NANO_CARBONS, NANO_STEPS = 294, 25
 # The nanostar runs against the float64 dense run.  Hf: the float32 error
 # grows with the molecule; both configurations run on the CPU against
@@ -185,14 +193,15 @@ def cycles_per_ms():
     return _CYCLES_PER_MS[0]
 
 
-def device_ms(fn, reps):
+def device_ms(fn, reps, before=None):
     """Median device time of one fn() call over reps calls (after one
     warm-up).  Before each call the stream gets a spin kernel
     (torch.cuda._sleep) that outlasts twice the host's time to enqueue fn()
     plus 0.2 ms, then start.record(); fn(); stop.record(): fn()'s launches
     are queued before the start event fires, so the events read the
     device alone, not the wrapper's host time.  Inputs stay in L2 between
-    calls where they fit."""
+    calls where they fit, unless ``before`` (queued ahead of the spin
+    kernel, outside the events) evicts them."""
     fn()
     sync()
     t0 = time.perf_counter()
@@ -203,6 +212,8 @@ def device_ms(fn, reps):
     pairs = []
     for _ in range(reps):
         start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        if before is not None:
+            before()
         torch.cuda._sleep(cycles)
         start.record()
         fn()
@@ -304,19 +315,69 @@ def phase_build():
           f"{cuda_build.BUILD_DIR} in {time.perf_counter() - t0:.2f} s",
           flush=True)
     reports = {}
-    for k in kernels:
+    for k in (sp2_kernel, eigh_kernel):
         reports[k.SOURCE] = [
             ln.strip() for ln in cuda_build.ptxas_report(k.SOURCE).splitlines()
             if "Compiling entry" in ln or "Used" in ln or "spill" in ln
             or "stack frame" in ln]
         print(f"[2 ptxas {k.SOURCE}.cu] " + " | ".join(reports[k.SOURCE]),
               flush=True)
+    k3 = k3_ptxas(cuda_build.ptxas_report(wapply_kernel.SOURCE))
+    for name, e in k3.items():
+        print(f"[2 ptxas wapply.cu {name}] {e['registers']} registers, "
+              f"{e['spill_stores']} bytes spill stores, {e['spill_loads']} "
+              f"bytes spill loads, {e['stack']} bytes stack, {e['smem']} "
+              f"bytes smem", flush=True)
+    check(len(k3) == 2 * 2 * len(K3_PERMS), f"K3 instantiations in the "
+          f"ptxas report: {sorted(k3)}")
+    spills = [n for n, e in k3.items() if "f32" in n
+              and (e["spill_stores"] or e["spill_loads"] or e["stack"])]
+    check(not spills, f"K3 float32 kernels spill or use a stack: {spills}")
+    reports[wapply_kernel.SOURCE] = k3
     return reports
+
+
+# a K3 kernel's mangled name: wapply_<kind> on <f|d> and the perm
+_K3_ENTRY = re.compile(
+    r"wapply_(fwd|bwd)I([fd])Li(\d)ELi(\d)ELi(\d)ELi(\d)E")
+
+
+def k3_ptxas(report):
+    """ptxas's numbers for each K3 instantiation in a -Xptxas -v report,
+    keyed '<fwd|bwd> <f32|f64> (p0, p1, p2, p3)'."""
+    out, name = {}, None
+    for ln in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\S+?)'?(?: for|$)", ln.strip())
+        if m:
+            k = _K3_ENTRY.search(m.group(1))
+            name = (f"{k.group(1)} {'f32' if k.group(2) == 'f' else 'f64'} "
+                    f"({', '.join(k.group(3, 4, 5, 6))})") if k else None
+            if name:
+                out.setdefault(name, {"registers": None, "spill_stores": None,
+                                      "spill_loads": None, "stack": None,
+                                      "smem": 0})
+            continue
+        if name is None:
+            continue
+        e = out[name]
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            e["stack"], e["spill_stores"], e["spill_loads"] = map(
+                int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            e["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            e["smem"] = int(m.group(1)) if m else 0
+    return out
 
 
 def phase_profiler():
     """eigh_jacobi and sp2_purify on CUDA tensors are one device kernel
-    each, at every kernel variant (read from a captured CUDA graph); the
+    each, at every kernel variant, and so are the K3 forward and backward
+    at each perm (read from a captured CUDA graph); the
     device-only timer read against torch.profiler's kernel time, and
     against median_ms, on a K3 forward at the headline's cell count.  A
     torch.profiler session can lose a ctypes launch's device events (a
@@ -337,12 +398,20 @@ def phase_profiler():
           "sp2_purify (n = 12, 16, 24, 32, 128) on CUDA: one kernel node "
           "in the CUDA graph of one call", flush=True)
     C = K3_CELLS["headline packed XX"]
-    ri, U, X, _ = (t.contiguous() for t in k3_case(C, torch.float32, 77))
+    ri, U, X, Yb = (t.contiguous() for t in k3_case(C, torch.float32, 77))
+    need = (True, True, True)
+    for perm in K3_PERMS:
+        check_one_kernel(lambda: wk._launch_fwd(ri, U, X, perm),
+                         "wapply_fwd", f"K3 forward at C={C} perm {perm}")
+        check_one_kernel(lambda: wk._launch_bwd(ri, U, X, Yb, perm, need),
+                         "wapply_bwd", f"K3 backward at C={C} perm {perm}")
+    print(f"[2 one launch] K3 forward and backward at C={C}, perms "
+          f"{', '.join(map(str, K3_PERMS))}: one kernel node each",
+          flush=True)
     perm = (1, 3, 2, 4)
 
     def fwd():
         return wk._launch_fwd(ri, U, X, perm)
-    check_one_kernel(fwd, "wapply_fwd", f"K3 forward at C={C}")
     dev = device_ms(fwd, 20)
     recorded = []
     for _ in range(3):
@@ -1189,6 +1258,36 @@ def phase_k3_parity():
               f"{rel[2]:.1e} dX {rel[3]:.1e}", flush=True)
         check(max(rel) <= TOL_K3[dtype] and block,
               f"K3 expanded X {dtype}: {rel}")
+        # operands that are views into larger buffers, one cell or one
+        # element in: not all 16-byte aligned, so the kernels take their
+        # plain loads (a float64 cell is 176 bytes, so its odd cell offset
+        # stays aligned and takes the bulk copies)
+        C = K3_CELLS["ragged"]
+        for how in ("cell", "element"):
+            if how == "cell":
+                ri, U, X, Yb = (t[1:] for t in k3_case(C + 1, dtype, 97))
+            else:
+                ops = []
+                for t in k3_case(C, dtype, 96):
+                    buf = torch.empty(t.numel() + 1, dtype=dtype, device=DEV)
+                    buf[1:].copy_(t.reshape(-1))
+                    ops.append(buf[1:].view(t.shape))
+                ri, U, X, Yb = ops
+            unaligned = any(t.data_ptr() % 16 for t in (ri, U, X))
+            check(unaligned or (how == "cell" and dtype == torch.float64),
+                  f"K3 {how}-offset case is aligned in {dtype}")
+            lines = []
+            for perm in K3_PERMS:
+                rel, absmax, block = k3_errors(ri, U, X, Yb, perm)
+                lines.append(f"{perm}: " + " ".join(
+                    f"{n} {e:.1e}" for n, e in zip(("y", "dri", "dU", "dX"),
+                                                  rel)))
+                check(max(rel) <= TOL_K3[dtype] and block,
+                      f"K3 odd {how} offset {dtype} {perm}: {rel}")
+                worst[dtype] = max(worst[dtype], absmax)
+            print(f"[13 K3 views at an odd {how} offset C={C} "
+                  f"{str(dtype)[6:]}, 16-byte aligned "
+                  f"{not unaligned}] " + " | ".join(lines), flush=True)
     return worst[torch.float32]
 
 
@@ -1405,12 +1504,15 @@ def phase_nanostar_dense(card, packed_ref):
             "dHf": dh, "dF": df}, k3_in.last
 
 
-def k3_timing(ri, U, X, perm, tag):
+def k3_timing(ri, U, X, perm, tag, flush):
     """K3 on one path's own operands (the exchange apply of its Fock
-    build): each kernel launch alone (median of 20, device time) against
-    its bound, beside the reading with host time (median_ms);
-    the plain version's forward and autograd backward as the reference
-    point (no PyTorch call computes this function)."""
+    build): each kernel launch alone (median of 20, device time), with its
+    inputs L2-warm ("ms") and cold ("ms_cold": ``flush`` writes a buffer
+    larger than L2 before each call, outside the events, as the main path
+    writes a K3 call's inputs many launches earlier), against its bound,
+    beside the reading with host time (median_ms); the plain version's
+    forward and autograd backward as the reference point (no PyTorch call
+    computes this function)."""
     from pyseqm_tpu_torch.ops import wapply_kernel as wk
     batch = torch.broadcast_shapes(ri.shape[:-1], U.shape[:-2],
                                    X.shape[:-2])
@@ -1427,7 +1529,9 @@ def k3_timing(ri, U, X, perm, tag):
     launch = {"fwd": lambda: wk._launch_fwd(ri, U, X, perm),
               "bwd": lambda: wk._launch_bwd(ri, U, X, Yb, perm, need)}
     ms = {k: device_ms(f, 20) for k, f in launch.items()}
+    cold = {k: device_ms(f, 20, before=flush) for k, f in launch.items()}
     host_ms = {k: median_ms(f, 20) for k, f in launch.items()}
+    bulk = not any(t.data_ptr() % 16 for t in (ri, U, X, Yb))
     leaves = [t.clone().requires_grad_(True) for t in (ri, U, X)]
     yr = wk.w_apply_reference(*leaves, perm)
     plain = {"fwd": median_ms(lambda: wk.w_apply_reference(ri, U, X, perm),
@@ -1441,18 +1545,35 @@ def k3_timing(ri, U, X, perm, tag):
         t_byte = C * (nin + nout) * size / PEAK_BYTES * 1e3
         t_flop = C * flops / PEAK_FP32 * 1e3
         bound = max(t_byte, t_flop)
-        out[kind] = {"ms": ms[kind], "host_ms": host_ms[kind],
-                     "plain_ms": plain[kind], "bound_ms": bound,
+        out[kind] = {"ms": ms[kind], "ms_cold": cold[kind],
+                     "host_ms": host_ms[kind], "plain_ms": plain[kind],
+                     "bound_ms": bound,
                      "bound_by": "operations" if t_flop > t_byte else "bytes",
-                     "cells": C, "max_abs_err": absmax}
+                     "share_of_bound_cold": bound / cold[kind],
+                     "cells": C, "bulk_copies": bulk, "max_abs_err": absmax}
         print(f"[17 K3 {kind} timing, {tag} C={C} perm {perm}] kernel "
-              f"{ms[kind]:.4f} ms (median of 20, device time alone; with "
-              f"host time {host_ms[kind]:.4f} ms), plain "
-              f"{plain[kind]:.3f} ms | bound {bound:.4f} ms (bytes "
-              f"{t_byte:.4f}, FP32 {t_flop:.4f}), kernel at "
-              f"{100 * bound / ms[kind]:.1f}% of it | kernel vs plain "
-              f"{max(rel):.1e} rel", flush=True)
+              f"cold {cold[kind]:.4f} ms, L2-warm {ms[kind]:.4f} ms (median "
+              f"of 20, device time alone; with host time "
+              f"{host_ms[kind]:.4f} ms), plain {plain[kind]:.3f} ms | bound "
+              f"{bound:.4f} ms (bytes {t_byte:.4f}, FP32 {t_flop:.4f}), "
+              f"kernel at {100 * bound / cold[kind]:.1f}% of it cold, "
+              f"{100 * bound / ms[kind]:.1f}% warm | bulk copies {bulk} | "
+              f"kernel vs plain {max(rel):.1e} rel", flush=True)
     return out
+
+
+def k3_timings(inputs, perm):
+    """k3_timing on each path's operands, after the timer's floor (the
+    device_ms of an empty launch) is printed once; returns (timings by
+    path, floor ms)."""
+    floor = device_ms(lambda: torch.cuda._sleep(0), 20)
+    print(f"[17 timer floor] device_ms of an empty launch "
+          f"(torch.cuda._sleep(0)): {floor:.4f} ms", flush=True)
+    buf = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=DEV)
+    out = {tag: k3_timing(*ops[perm], perm, tag, buf.zero_)
+           for tag, ops in inputs}
+    del buf
+    return out, floor
 
 
 class Phase:
@@ -1470,19 +1591,20 @@ class Phase:
                   f" s", flush=True)
 
 
-def k3_entry(name, kind, replaces, launches_by_path, timings, worst):
+def k3_entry(name, kind, replaces, launches_by_path, timings, worst, floor):
     """The kernels-line entry of K3's forward or backward kernel: times on
     the main path's (headline) input, every path's beside it."""
     main = timings["headline packed XX"][kind]
     return {"name": name, "route": "cuda",
             "source": "pyseqm_tpu_torch/csrc/wapply.cu",
-            "replaces": replaces,
+            "replaces": replaces, "redesigned": "PR 5",
             "launches": sum(launches_by_path.values()),
             "max_abs_err": max(t[kind]["max_abs_err"]
                                for t in timings.values()),
             "max_abs_err_synthetic_f32": worst,
-            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+            **{k: main[k] for k in ("ms", "ms_cold", "plain_ms", "bound_ms",
                                     "bound_by")},
+            "timer_floor_ms": floor,
             "library_ms": None, "cells": main["cells"],
             "launches_by_path": launches_by_path,
             "by_path": {tag: t[kind] for tag, t in timings.items()}}
@@ -1565,11 +1687,11 @@ def main():
               f"{path} path")
     xch = (1, 3, 2, 4)
     with Phase("17 K3 timing"):
-        k3_t = {tag: k3_timing(*inputs[xch], xch, tag) for tag, inputs in
-                (("headline packed XX", k3_head.last),
-                 ("nanostar packed XX", k3_nano_pk_in),
-                 ("flat default", k3_flat_in),
-                 ("nanostar dense grid", k3_nano_dn_in))}
+        k3_t, floor = k3_timings(
+            (("headline packed XX", k3_head.last),
+             ("nanostar packed XX", k3_nano_pk_in),
+             ("flat default", k3_flat_in),
+             ("nanostar dense grid", k3_nano_dn_in)), xch)
     k2 = {"name": "eigh_jacobi", "route": "cuda",
           "source": "pyseqm_tpu_torch/csrc/eigh.cu",
           "replaces": "pyseqm_tpu/ops/eigh_pallas.py:75",
@@ -1592,10 +1714,14 @@ def main():
     k1["launches_by_path"] = {"xlbomd_sp2": launches}
     k1["ptxas"] = ptxas["sp2"]
     k3f = k3_entry("wapply_fwd", "fwd", "tools/wapply_pallas.py:181",
-                   {p: n[0] for p, n in k3_paths.items()}, k3_t, worst3)
+                   {p: n[0] for p, n in k3_paths.items()}, k3_t, worst3,
+                   floor)
     k3b = k3_entry("wapply_bwd", "bwd", "tools/wapply_pallas.py:199",
-                   {p: n[1] for p, n in k3_paths.items()}, k3_t, worst3)
-    k3f["ptxas"] = ptxas["wapply"]
+                   {p: n[1] for p, n in k3_paths.items()}, k3_t, worst3,
+                   floor)
+    for k3, kind in ((k3f, "fwd"), (k3b, "bwd")):
+        k3["ptxas"] = {n: e for n, e in ptxas["wapply"].items()
+                       if n.startswith(kind)}
     k3f["timer_cross_check"] = timer_check
     k3f["launches_per_xl_step"], k3b["launches_per_xl_step"] = k3_step
     print(json.dumps({"main_path": {"steps_per_s": sps,

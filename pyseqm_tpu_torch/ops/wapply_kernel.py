@@ -27,8 +27,11 @@ frame that reaches the apply).  It reads only U[1:4, 1:4] and returns dU
 on that block, zeros elsewhere.
 
 What bounds it on an H100, and what the design does about it: see
-``csrc/wapply.cu`` (device-memory bound; one thread per cell, the 72-entry
-contraction from a table of T's nonzeros in shared memory).
+``csrc/wapply.cu`` (device-memory bound; tiles of consecutive cells
+brought into shared memory by bulk asynchronous copies, one thread per
+cell, the 72-entry contraction unrolled per perm with every per-cell
+array in registers).  The kernels are instantiated for the three perms
+the package uses (``PERM_IDS``); another perm on a CUDA tensor raises.
 
 ``w_apply`` launches the kernels for CUDA tensors, through ``WApply`` (an
 autograd.Function, once differentiable: a second derivative raises) and
@@ -50,10 +53,12 @@ from torch.autograd.function import once_differentiable
 from . import cuda_build
 
 SOURCE = "wapply"
-MAX_ENTRIES = 128          # the kernel's table capacity; T has 72 nonzeros
-_FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong,
+# the perms the kernels are instantiated for, by their C perm id:
+# Coulomb on atom i, Coulomb on atom j, exchange (ops/tetci.py)
+PERM_IDS = {(1, 2, 3, 4): 0, (3, 4, 1, 2): 1, (1, 3, 2, 4): 2}
+_FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong,
                                          ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_longlong,
+_BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_longlong,
                                          ctypes.c_void_p]
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -82,21 +87,6 @@ def _expansion(perm: Tuple[int, int, int, int]) -> np.ndarray:
     """T (22, 4, 4, 4, 4) permuted to (r, free1, free2, con1, con2)."""
     from .tetci import _ri_expansion_table
     return _ri_expansion_table().transpose((0,) + tuple(perm))
-
-
-@functools.lru_cache(maxsize=None)
-def t_entries(perm: Tuple[int, int, int, int]) -> np.ndarray:
-    """The nonzeros of T_perm as the kernel's table: int32 entries
-    f | r << 4 | c << 9 with f = 4 free1 + free2, c = 4 con1 + con2."""
-    r, a, b, c, d = np.nonzero(_expansion(perm))
-    ent = (4 * a + b) | (r << 4) | ((4 * c + d) << 9)
-    return np.ascontiguousarray(ent.astype(np.int32))
-
-
-@functools.lru_cache(maxsize=None)
-def _device_table(perm, device) -> torch.Tensor:
-    """t_entries(perm) on ``device``, copied once."""
-    return torch.as_tensor(t_entries(perm), device=device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -130,15 +120,25 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _perm_id(perm) -> int:
+    """The kernels' id of ``perm``; raises for a perm they are not
+    instantiated for."""
+    pid = PERM_IDS.get(tuple(perm))
+    if pid is None:
+        raise ValueError(f"the K3 kernels take the perms "
+                         f"{list(PERM_IDS)}, not {tuple(perm)}")
+    return pid
+
+
 def _launch_fwd(ri, U, X, perm):
     global launches_fwd
+    pid = _perm_id(perm)
     fn = _load("fwd", ri.dtype)
-    tab = _device_table(perm, ri.device)
     C = ri.shape[0]
     y = torch.empty_like(X)
     with torch.cuda.device(ri.device):
         rc = fn(ri.data_ptr(), U.data_ptr(), X.data_ptr(), y.data_ptr(),
-                tab.data_ptr(), int(tab.numel()), C, _stream(ri.device))
+                pid, C, _stream(ri.device))
     if rc != 0:
         raise RuntimeError(f"wapply forward kernel launch failed: CUDA "
                            f"error {rc}")
@@ -148,16 +148,15 @@ def _launch_fwd(ri, U, X, perm):
 
 def _launch_bwd(ri, U, X, Yb, perm, need):
     global launches_bwd
+    pid = _perm_id(perm)
     fn = _load("bwd", ri.dtype)
-    tab = _device_table(perm, ri.device)
     C = ri.shape[0]
     dri = torch.empty_like(ri) if need[0] else None
     dU = torch.empty_like(U) if need[1] else None
     dX = torch.empty_like(X) if need[2] else None
     with torch.cuda.device(ri.device):
         rc = fn(ri.data_ptr(), U.data_ptr(), X.data_ptr(), Yb.data_ptr(),
-                _ptr(dri), _ptr(dU), _ptr(dX), tab.data_ptr(),
-                int(tab.numel()), C, _stream(ri.device))
+                _ptr(dri), _ptr(dU), _ptr(dX), pid, C, _stream(ri.device))
     if rc != 0:
         raise RuntimeError(f"wapply backward kernel launch failed: CUDA "
                            f"error {rc}")
@@ -195,7 +194,8 @@ def w_apply(ri: torch.Tensor, U: torch.Tensor, X: torch.Tensor, perm):
     ri (..., 22), U (..., 4, 4), X (..., 4, 4).  K3 for CUDA tensors (the
     operands expanded to the common cells and made contiguous; X may be an
     expanded view, and its cotangent is reduced back by autograd), the
-    plain version for CPU tensors."""
+    plain version for CPU tensors (any perm; the kernels take the three
+    of ``PERM_IDS``)."""
     if ri.dtype not in _SUFFIX or U.dtype != ri.dtype or X.dtype != ri.dtype:
         raise TypeError(f"w_apply takes float32 or float64 ri, U, X of one "
                         f"type, got {ri.dtype}, {U.dtype}, {X.dtype}")

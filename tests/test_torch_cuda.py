@@ -136,29 +136,37 @@ def test_eigh_kernel_matches_plain_and_exact(cuda, B, n, kind):
     assert (resid <= eigh_kernel.OFF_TOL).all()
 
 
+def _graph_nodes(fn, path):
+    """The device work of one fn() call (after a warm-up that builds and
+    loads the kernel outside the capture): one text per node of the CUDA
+    graph captured around the call (a torch.profiler session can lose a
+    ctypes launch's device events; a captured graph cannot)."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)   # kept for the dump
+    g.enable_debug_mode()
+    with torch.cuda.graph(g):
+        fn()
+    g.debug_dump(str(path))
+    g.reset()
+    text = path.read_text()
+    starts = [m.start() for m in re.finditer(         # node declarations
+        r'^"graph_\d+_node_\d+"\s*\[', text, re.M)]
+    return [text[i:j] for i, j in zip(starts, starts[1:] + [len(text)])]
+
+
 @pytest.mark.parametrize("n", [16, 24, 128])
 def test_eigh_jacobi_is_one_launch(cuda, n, tmp_path):
     """On CUDA the shift, padding, sweeps, sort and normalisation are one
     kernel launch: the CUDA graph captured around one call holds one node,
-    the eigh kernel (a torch.profiler session can lose a ctypes launch's
-    device events; a captured graph cannot)."""
+    the eigh kernel."""
     a = torch.from_numpy(_sym_case(64, n, "dense")).to(cuda)
-    eigh_kernel.eigh_jacobi(a)          # build and load outside the capture
-    torch.cuda.synchronize()
     before = eigh_kernel.launches
-    g = torch.cuda.CUDAGraph(keep_graph=True)   # kept for the dump
-    g.enable_debug_mode()
-    with torch.cuda.graph(g):
-        eigh_kernel.eigh_jacobi(a, with_resid=True)
-    g.debug_dump(str(tmp_path / "graph.dot"))
-    g.reset()
-    text = (tmp_path / "graph.dot").read_text()
-    starts = [m.start() for m in re.finditer(         # node declarations
-        r'^"graph_\d+_node_\d+"\s*\[', text, re.M)]
-    nodes = [text[i:j] for i, j in zip(starts, starts[1:] + [len(text)])]
+    nodes = _graph_nodes(lambda: eigh_kernel.eigh_jacobi(a, with_resid=True),
+                         tmp_path / "graph.dot")
     assert (len(nodes) == 1 and "KERNEL" in nodes[0]
             and "eigh" in nodes[0]), [nd[:160] for nd in nodes]
-    assert eigh_kernel.launches == before + 1
+    assert eigh_kernel.launches == before + 2       # warm-up and capture
     assert eigh_kernel.launches_by_n[eigh_kernel.next_pow2(n)] >= 1
 
 
@@ -207,27 +215,59 @@ def _grads(fn, ri, U, X, Yb, perm):
     return (y,) + torch.autograd.grad(y, leaves, Yb)
 
 
+K3_PERMS = [(1, 2, 3, 4), (3, 4, 1, 2), (1, 3, 2, 4)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("perm", [(1, 2, 3, 4), (3, 4, 1, 2), (1, 3, 2, 4)])
+@pytest.mark.parametrize("perm", K3_PERMS)
 @pytest.mark.parametrize("C", [1001, 40960])
 def test_wapply_kernel_matches_plain(cuda, dtype, perm, C):
-    ri, U, X, Yb = _wapply_case(C, dtype, cuda, C)
-    f0, b0 = wapply_kernel.launches_fwd, wapply_kernel.launches_bwd
-    y, dri, dU, dX = _grads(wapply_kernel.w_apply, ri, U, X, Yb, perm)
-    torch.cuda.synchronize()
-    assert (wapply_kernel.launches_fwd - f0, wapply_kernel.launches_bwd
-            - b0) == (1, 1)
-    ref = _grads(wapply_kernel.w_apply_reference, ri, U, X, Yb, perm)
-    # f32: the bounds of the TPU kernel's own check (tools/wapply_pallas.py
-    # check(): 3e-6 of the largest value); f64: rounding
-    tol = 3.0e-6 if dtype == torch.float32 else 1.0e-12
-    assert (y - ref[0]).abs().max() <= tol * ref[0].abs().max()
-    # the kernel returns dU on the 3x3 block only (U's row 0 and column 0
-    # are structural constants)
-    assert not dU[..., 0, :].any() and not dU[..., 1:, 0].any()
-    for a, b in ((dri, ref[1]), (dU[..., 1:, 1:], ref[2][..., 1:, 1:]),
-                 (dX, ref[3])):
-        assert (a - b).abs().max() <= tol * max(b.abs().max().item(), 1.0)
+    """Contiguous operands (C = 1001 leaves a ragged last tile), then the
+    same count as views one cell into larger tensors: in float32 not
+    16-byte aligned, so the kernels take their plain-load path."""
+    for offset in (0, 1):
+        ri, U, X, Yb = (t[offset:] for t in
+                        _wapply_case(C + offset, dtype, cuda, C))
+        if offset and dtype == torch.float32:
+            assert ri.data_ptr() % 16 != 0
+        f0, b0 = wapply_kernel.launches_fwd, wapply_kernel.launches_bwd
+        y, dri, dU, dX = _grads(wapply_kernel.w_apply, ri, U, X, Yb, perm)
+        torch.cuda.synchronize()
+        assert (wapply_kernel.launches_fwd - f0, wapply_kernel.launches_bwd
+                - b0) == (1, 1)
+        ref = _grads(wapply_kernel.w_apply_reference, ri, U, X, Yb, perm)
+        # f32: the bounds of the TPU kernel's own check
+        # (tools/wapply_pallas.py check(): 3e-6 of the largest value);
+        # f64: rounding
+        tol = 3.0e-6 if dtype == torch.float32 else 1.0e-12
+        assert (y - ref[0]).abs().max() <= tol * ref[0].abs().max()
+        # the kernel returns dU on the 3x3 block only (U's row 0 and
+        # column 0 are structural constants)
+        assert not dU[..., 0, :].any() and not dU[..., 1:, 0].any()
+        for a, b in ((dri, ref[1]), (dU[..., 1:, 1:], ref[2][..., 1:, 1:]),
+                     (dX, ref[3])):
+            assert (a - b).abs().max() <= tol * max(b.abs().max().item(),
+                                                    1.0)
+
+
+@pytest.mark.parametrize("perm", K3_PERMS)
+def test_wapply_is_one_launch(cuda, perm, tmp_path):
+    """The K3 forward and backward are one kernel launch each: the CUDA
+    graph captured around one call holds one node, the kernel."""
+    ri, U, X, Yb = (t.contiguous() for t in
+                    _wapply_case(4096, torch.float32, cuda, 11))
+    need = (True, True, True)
+    for name, fn in (("wapply_fwd",
+                      lambda: wapply_kernel._launch_fwd(ri, U, X, perm)),
+                     ("wapply_bwd", lambda: wapply_kernel._launch_bwd(
+                         ri, U, X, Yb, perm, need))):
+        counts = wapply_kernel.launches_fwd, wapply_kernel.launches_bwd
+        nodes = _graph_nodes(fn, tmp_path / f"{name}.dot")
+        assert (len(nodes) == 1 and "KERNEL" in nodes[0]
+                and name in nodes[0]), [nd[:160] for nd in nodes]
+        grown = [b - a for a, b in zip(counts, (wapply_kernel.launches_fwd,
+                                                 wapply_kernel.launches_bwd))]
+        assert grown == ([2, 0] if name == "wapply_fwd" else [0, 2])
 
 
 def test_wapply_expanded_x_and_once_differentiable(cuda):

@@ -1,12 +1,15 @@
 """PyTorch port, the fused two-electron apply K3 on the CPU: its plain
 version against the JAX package's ``_w_apply`` (forward and VJP, f64) and
 against the TPU kernel ``tools/wapply_pallas.py`` in interpret mode (f32);
-the CUDA kernel's arithmetic (its table of T's nonzeros and its backward
+the CUDA kernels' constexpr table of T's nonzeros (parsed from
+``csrc/wapply.cu``) against the package's expansion tensor, per perm; the
+kernels' arithmetic (that table unrolled in its order, and the backward
 formulas) emulated in plain torch against autograd of the plain version;
 ``WApply`` with that emulation swapped in, through gradcheck; the wrapper's
 dispatch and checks; and the frame structure the kernel assumes."""
 import importlib.util
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -118,30 +121,79 @@ def _structural(U):
     return Us
 
 
+def _kernel_table():
+    """T's nonzeros (r, k, l, m, n) as the constexpr table kT of
+    csrc/wapply.cu lists them, in its order (the kernels' unrolled
+    order)."""
+    path = os.path.join(os.path.dirname(os.path.dirname(wk.__file__)),
+                        "csrc", "wapply.cu")
+    with open(path) as fh:
+        src = fh.read()
+    body = re.search(r"constexpr int kT\[72\]\[5\] = \{(.*?)\n\s*\};", src,
+                     re.S).group(1)
+    rows = re.findall(r"\{\s*(\d+),\s*(\d+),\s*(\d+),\s*(\d+),\s*(\d+)\s*\}",
+                      body)
+    return np.array(rows, dtype=np.int64).reshape(-1, 5)
+
+
+def _kernel_entries(perm):
+    """(r, f, c) of T_perm's entries in the kernels' order, as the template
+    Perm<P0, P1, P2, P3> of csrc/wapply.cu computes them: f = 4 idx[P0] +
+    idx[P1], c = 4 idx[P2] + idx[P3] with idx[1..4] = (k, l, m, n)."""
+    t = _kernel_table()
+    p0, p1, p2, p3 = perm
+    return list(zip(t[:, 0], 4 * t[:, p0] + t[:, p1], 4 * t[:, p2] + t[:, p3]))
+
+
+def test_kernel_table_is_the_nonzeros_of_t():
+    t = _kernel_table()
+    T = ttetci._ri_expansion_table()
+    assert t.shape == (72, 5) and len({tuple(e) for e in t}) == 72
+    # T is 0/1 with exactly these 72 ones
+    assert set(np.unique(T)) == {0.0, 1.0} and T.sum() == 72
+    assert (T[tuple(t.T)] == 1.0).all()
+
+
+@pytest.mark.parametrize("perm", PERMS)
+def test_kernel_table_per_perm_gives_the_entries_of_t_perm(perm):
+    """The compile-time perm applied to the table gives the (r, f, c)
+    index sets of T_perm = T.transpose((0,) + perm), f = 4 free1 + free2,
+    c = 4 con1 + con2 (what the kernels' run-time table held before)."""
+    r, a, b, c, d = np.nonzero(wk._expansion(perm))
+    want = set(zip(r, 4 * a + b, 4 * c + d))
+    got = _kernel_entries(perm)
+    assert len(got) == len(want) == 72 and set(got) == want
+
+
 def _kernel_fwd(ri, U, X, perm):
-    """The CUDA forward's arithmetic: rotate in, one multiply-add per table
-    entry f | r << 4 | c << 9, rotate out."""
-    ent = torch.as_tensor(wk.t_entries(perm).astype(np.int64))
-    f, r, c = ent & 15, (ent >> 4) & 31, ent >> 9
+    """The CUDA forward's arithmetic: rotate in, the 72 multiply-adds
+    y[f] += ri[r] Xl[c] in the kernels' unrolled order, rotate out."""
     Us = _structural(U)
     Xl = (Us.transpose(1, 2) @ X @ Us).reshape(-1, 16)
-    y = torch.zeros_like(Xl).index_add(1, f, ri[:, r] * Xl[:, c])
+    y = torch.zeros_like(Xl)
+    for r, f, c in _kernel_entries(perm):
+        y[:, f] += ri[:, r] * Xl[:, c]
     return Us @ y.reshape(-1, 4, 4) @ Us.transpose(1, 2)
 
 
 def _kernel_bwd(ri, U, X, Yb, perm, need):
-    """The CUDA backward's arithmetic: B, C and dri from one pass over the
-    table, dX = U C U^T, dU = Yb U B^T + Yb^T U B + X U C^T + X^T U C on
-    the 3x3 block, zeros elsewhere."""
-    ent = torch.as_tensor(wk.t_entries(perm).astype(np.int64))
-    f, r, c = ent & 15, (ent >> 4) & 31, ent >> 9
+    """The CUDA backward's arithmetic in the kernels' order: dri, B and C
+    from one unrolled pass over the table each, dX = U C U^T,
+    dU = Yb U B^T + Yb^T U B + X U C^T + X^T U C on the 3x3 block, zeros
+    elsewhere."""
+    ent = _kernel_entries(perm)
     Us = _structural(U)
     Ut = Us.transpose(1, 2)
     Xl = (Ut @ X @ Us).reshape(-1, 16)
     El = (Ut @ Yb @ Us).reshape(-1, 16)
-    B = torch.zeros_like(Xl).index_add(1, f, ri[:, r] * Xl[:, c])
-    Cm = torch.zeros_like(Xl).index_add(1, c, ri[:, r] * El[:, f])
-    dri = torch.zeros_like(ri).index_add(1, r, El[:, f] * Xl[:, c])
+    dri = torch.zeros_like(ri)
+    for r, f, c in ent:
+        dri[:, r] += El[:, f] * Xl[:, c]
+    B, Cm = torch.zeros_like(Xl), torch.zeros_like(Xl)
+    for r, f, c in ent:
+        B[:, f] += ri[:, r] * Xl[:, c]
+    for r, f, c in ent:
+        Cm[:, c] += ri[:, r] * El[:, f]
     B, Cm = B.reshape(-1, 4, 4), Cm.reshape(-1, 4, 4)
     du = (Yb @ Us @ B.transpose(1, 2) + Yb.transpose(1, 2) @ Us @ B
           + X @ Us @ Cm.transpose(1, 2) + X.transpose(1, 2) @ Us @ Cm)
@@ -153,7 +205,7 @@ def _kernel_bwd(ri, U, X, Yb, perm, need):
 
 @pytest.mark.parametrize("perm", PERMS)
 def test_kernel_arithmetic_matches_autograd_of_plain(perm):
-    assert len(wk.t_entries(perm)) == 72 <= wk.MAX_ENTRIES
+    assert len(_kernel_entries(perm)) == 72
     ri, U, X, Yb = [torch.tensor(a) for a in _case(50, 3)]
     ref = _torch_grads(wk.w_apply_reference, *[_np(t) for t in
                                                (ri, U, X, Yb)], perm)
@@ -205,6 +257,24 @@ def test_wrapper_checks_and_dispatch():
         wk.w_apply(ri[:, :21], U, X, (1, 2, 3, 4))
     with pytest.raises(ValueError):
         wk.w_apply(ri.to("meta"), U.to("meta"), X.to("meta"), (1, 2, 3, 4))
+
+
+def test_kernel_launch_rejects_other_perms():
+    """The kernels are instantiated for the package's three perms: another
+    perm raises before anything is launched (or built), while the plain
+    version takes any perm."""
+    ri, U, X, Yb = [torch.tensor(a) for a in _case(3, 6)]
+    f0, b0 = wk.launches_fwd, wk.launches_bwd
+    for perm in ((1, 2, 4, 3), (2, 1, 3, 4)):
+        with pytest.raises(ValueError):
+            wk._launch_fwd(ri, U, X, perm)
+        with pytest.raises(ValueError):
+            wk._launch_bwd(ri, U, X, Yb, perm, (True, True, True))
+        y = wk.w_apply(ri, U, X, perm)
+        np.testing.assert_array_equal(
+            _np(y), _np(wk.w_apply_reference(ri, U, X, perm)))
+    assert (wk.launches_fwd, wk.launches_bwd) == (f0, b0)
+    assert sorted(wk.PERM_IDS) == sorted(PERMS)
 
 
 def test_frames_reaching_the_apply_are_structured(monkeypatch):
