@@ -23,7 +23,10 @@ line is printed):
     plain version at every path's cell count, a ragged count, an
     expanded X and operands that are views at an odd cell or element
     offset (not 16-byte aligned: the kernels' plain-load path), three
-    perms, float32 and float64;
+    perms, float32 and float64; then its second derivative: double
+    backward through WApply / WApplyBwd against double backward through
+    the plain version at 40,960 cells and on an expanded X, and one
+    WApplyBwd forward is one K3 backward launch;
 4. the XL-SP2 path at full width: 10,240 molecules x 8 atoms, AM1 float32,
    one bootstrap SCF (DIIS, SP2) then XL-BOMD (k=5, 0.4 fs) through the
    entry points build -> XLBOMD.initialize -> XLBOMD.step: steps/s, kernel
@@ -68,7 +71,27 @@ line is printed):
     backward, L2-warm and cold after a 256 MiB write, beside the
     host-inclusive reading and the timer's floor, an empty launch) against
     its bound and its plain version;
-18. a JSON line of every kernel with its launches, error and times against
+19. the SCF adjoint (backward mode 1) at full width: the headline batch,
+    AM1 float32, eigh SCF on the static packed layout, per-atom learned
+    U_ss and zeta_s; energy and one backward to them and the coordinates:
+    molecules/s (median of 3 after a warm-up), adjoint iterations,
+    molecules masked as backward failures, K2 and K3 launches; float32
+    against float64 on the first 256 molecules; then the same in the
+    default flat layout;
+20. Hessians through the unrolled SCF (backward mode 2, converger 1, 30
+    iterations) of 1,024 headline molecules: the full 24x24 coordinate
+    Hessian per molecule by double backward, float64 (K3 float64, K3's
+    second derivative) and float32 (K2, K3 float32, the double-float
+    overlap's second derivative); float64 symmetry, the float64 kernel
+    path against the same Hessian with the plain apply, float32 against
+    float64; K3 forward and backward launches;
+21. the class-segmented flat pair list (pack_pairs, dense_pair_grid
+    False) at full width, the scf-eigh configuration: molecules/s over 3
+    chained energy calls, K3 launches on the XX slice; Hf and forces
+    against the packed dense grid on 256 molecules at float64;
+22. the three SCF convergers on 256 headline molecules at float64 reach
+    one Hf;
+23. a JSON line of every kernel with its launches, error and times against
     its bound; then the card; the elapsed time; then the result line.
 
 Every phase prints its elapsed time.  A kernel "alone" is timed by
@@ -80,6 +103,7 @@ Imports torch, numpy and pyseqm_tpu_torch only.  Exits non-zero without a
 CUDA device, or when the package is not next to this script.
 """
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import os
@@ -143,6 +167,32 @@ NANO_CARBONS, NANO_STEPS = 294, 25
 # twice the headline bound (1e-3) for the packed run's 10x looser SCF eps.
 # The two float32 runs are held to each other at the same bounds.
 TOL_HF_NANO, TOL_F_NANO = 0.05, 2.0e-3
+# the SCF adjoint (phase 19): repetitions timed after a warm-up, and float32
+# against float64 on the first 256 molecules.  dHf/dR is the force of
+# phase 7 (the adjoint adds nothing to a variational Hf) and sits at the
+# float32 storage floor there; dHf/dU_ss is an s population (<= 2) and
+# dHf/dzeta_s (eV bohr) scales with |dHf/dR|.  This phase read 1.5e-5,
+# 4.7e-4 and 6.1e-4 (packed; flat 1.5e-5, 4.8e-4, 6.7e-4) on an H100 80GB
+# HBM3 at 700 W; bounds about 13x, 4x and 3x those
+ADJ_REPS = 3
+TOL_G_USS, TOL_G_ZETA, TOL_G_R = 2.0e-4, 2.0e-3, 2.0e-3
+# Hessians (phase 20): molecules, unrolled iterations.  Bounds relative to
+# max |H|: symmetry at float64 as tests/test_second_order.py asks; the
+# kernels against the plain apply at float64 (rounding of a 30-iteration
+# double backward); float32 against float64 per molecule (relative to that
+# molecule's max |H|), its 99th percentile and its largest.  A second
+# derivative of eigh carries 1/(e_i - e_j) between occupied levels, which
+# cancels in exact arithmetic and leaves float32 rounding over the gap:
+# the jittered CH4 molecules, whose t2 levels split by meV, read the
+# largest errors (the phase prints the worst molecules and their gaps).
+# On an H100 80GB HBM3 at 700 W it read p99 1.8e-3 and worst 3.8e-2;
+# bounds p99 5e-3 and worst 0.1
+HESS_NMOL, HESS_ITERS = 1024, 30
+TOL_HESS_SYM, TOL_HESS_KERNEL = 1.0e-8, 1.0e-10
+TOL_HESS_F32_P99, TOL_HESS_F32_MAX = 5.0e-3, 0.1
+# the split flat pair list against the packed dense grid at float64 (eV,
+# eV/A), and the three convergers' common Hf (tests/test_aux.py)
+TOL_SPLIT_HF, TOL_SPLIT_F, TOL_CONV = 1.0e-8, 1.0e-7, 1.0e-8
 
 
 class PhaseError(RuntimeError):
@@ -1186,6 +1236,17 @@ def k3_tap():
     return Tap(tetci, "w_apply", key=lambda ri, U, X, perm: tuple(perm))
 
 
+@contextlib.contextmanager
+def patched(module, name, value):
+    """``module.name`` replaced by ``value`` while active."""
+    orig = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
 def k3_case(C, dtype, seed):
     """K3 operands from a seed: 22 integrals, a frame from a random bond
     direction (frame_matrix, so U has the structure the kernel assumes),
@@ -1289,6 +1350,82 @@ def phase_k3_parity():
                   f"{str(dtype)[6:]}, 16-byte aligned "
                   f"{not unaligned}] " + " | ".join(lines), flush=True)
     return worst[torch.float32]
+
+
+def k3_second_errors(ri, U, X, Yb, perm, v):
+    """Double backward through K3 (WApply, then WApplyBwd under
+    create_graph) against double backward through the plain version: the
+    gradients of the linear form sum(v * (dri, dU, dX)) by ri, U (the 3x3
+    block), X and Yb, each relative to max(its largest value, 1); and the
+    largest absolute error.  v[1] lies on the block the kernels read."""
+    from pyseqm_tpu_torch.ops import wapply_kernel as wk
+
+    def run(fn):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (ri, U, X, Yb)]
+        g = torch.autograd.grad(fn(*leaves[:3], perm), leaves[:3],
+                                leaves[3], create_graph=True)
+        form = sum((a * b).sum() for a, b in zip(v, g))
+        return torch.autograd.grad(form, leaves)
+    got, ref = run(wk.w_apply), run(wk.w_apply_reference)
+    sync()
+    rel, absmax = [], 0.0
+    for k, (a, b) in enumerate(zip(got, ref)):
+        if k == 1:
+            a, b = a[..., 1:, 1:], b[..., 1:, 1:]
+        d = (a - b).abs().max().item()
+        rel.append(d / max(b.abs().max().item(), 1.0))
+        absmax = max(absmax, d)
+    return rel, absmax
+
+
+def phase_k3_second_order():
+    """K3's second derivative at the headline flat layout's cell count
+    and on the expanded X of the packed Coulomb apply, each perm, float32
+    and float64; one WApplyBwd forward is one K3 backward launch."""
+    from pyseqm_tpu_torch.ops import wapply_kernel as wk
+    C = K3_CELLS["flat default"]
+    worst = {torch.float32: 0.0, torch.float64: 0.0}
+    for dtype in (torch.float32, torch.float64):
+        blk = torch.zeros(4, 4, dtype=dtype, device=DEV)
+        blk[1:, 1:] = 1.0
+        ri, U, X, Yb = k3_case(C, dtype, 31)
+        v = [t for t in k3_case(C, dtype, 32)]
+        v = [v[0], v[2] * blk, v[3]]
+        lines = []
+        for perm in K3_PERMS:
+            rel, absmax = k3_second_errors(ri, U, X, Yb, perm, v)
+            lines.append(f"{perm}: " + " ".join(
+                f"{n} {e:.1e}" for n, e in zip(("ri", "U", "X", "Yb"), rel)))
+            check(max(rel) <= TOL_K3[dtype], f"K3 double backward {dtype} "
+                  f"{perm}: relative errors {rel}")
+            worst[dtype] = max(worst[dtype], absmax)
+        print(f"[13 K3 double backward C={C} {str(dtype)[6:]}] "
+              + " | ".join(lines), flush=True)
+        # the expanded X of the packed Coulomb apply
+        shape = (NMOL, 2, 2)
+        ri, U, _, Yb = (t.reshape(shape + t.shape[1:]) for t in
+                        k3_case(NMOL * 4, dtype, 33))
+        Xb = k3_case(NMOL * 2, dtype, 34)[2].reshape(NMOL, 1, 2, 4, 4)
+        w = k3_case(NMOL * 4, dtype, 35)
+        v = [w[0].reshape(shape + (22,)), (w[1] * blk).reshape(
+            shape + (4, 4)), k3_case(NMOL * 2, dtype, 36)[2].reshape(
+            NMOL, 1, 2, 4, 4)]
+        rel, absmax = k3_second_errors(ri, U, Xb, Yb, (1, 2, 3, 4), v)
+        print(f"[13 K3 double backward, expanded X ({NMOL}, 1, 2) -> "
+              f"({NMOL}, 2, 2) {str(dtype)[6:]}] " + " ".join(
+                  f"{n} {e:.1e}" for n, e in zip(("ri", "U", "X", "Yb"), rel)),
+              flush=True)
+        check(max(rel) <= TOL_K3[dtype], f"K3 double backward expanded X "
+              f"{dtype}: {rel}")
+        worst[dtype] = max(worst[dtype], absmax)
+    ri, U, X, Yb = (t.contiguous() for t in k3_case(4096, torch.float32, 37))
+    for perm in K3_PERMS:
+        check_one_kernel(lambda: wk.WApplyBwd.apply(ri, U, X, Yb, perm),
+                         "wapply_bwd", f"WApplyBwd forward {perm}")
+    print("[13 K3 double backward] one WApplyBwd forward is one wapply_bwd "
+          "kernel (captured CUDA graph), every perm", flush=True)
+    return worst
 
 
 def phase_flat_default(card):
@@ -1504,6 +1641,266 @@ def phase_nanostar_dense(card, packed_ref):
             "dHf": dh, "dF": df}, k3_in.last
 
 
+def adjoint_setup(nmol, dtype, eps, pack):
+    """The headline batch with the eigh SCF and backward mode 1."""
+    const, tables, cfg, species, coords = headline_setup(
+        nmol, dtype, eps, 1.0e-4, use_sp2=False, pack=pack)
+    return (const, tables, dataclasses.replace(cfg, scf=dataclasses.replace(
+        cfg.scf, backward=1)), species, coords)
+
+
+def adjoint_step(const, tables, cfg, species, coords):
+    """Energy with per-atom learned U_ss and zeta_s (built from the
+    tables), then one backward of sum(Hf) to them and the coordinates."""
+    import pyseqm_tpu_torch as pt
+    learned = {k: tables[k][species].clone().requires_grad_(True)
+               for k in ("U_ss", "zeta_s")}
+    x = coords.detach().clone().requires_grad_(True)
+    out = pt.energy(const, tables, cfg, species, x, learned=learned)
+    grads = torch.autograd.grad(out.Hf.sum(), (learned["U_ss"],
+                                               learned["zeta_s"], x))
+    return out, grads
+
+
+def phase_scf_adjoint(card, pack):
+    """Backward mode 1 at full width: energy + gradient to the learned
+    parameters and the coordinates, median of ADJ_REPS after a warm-up;
+    float32 against float64 on the first 256 molecules."""
+    from pyseqm_tpu_torch import scf
+    from pyseqm_tpu_torch.ops import eigh_kernel
+    tag = "scf_adjoint" if pack else "scf_adjoint_flat"
+    label = "19 scf-adjoint" + ("" if pack else " flat")
+    setup = adjoint_setup(NMOL, torch.float32, 1.0e-5, pack)
+    adjoint_step(*setup)                                    # warm-up
+    sync()
+    k2_reset()
+    k3_reset()
+    scf.adjoint_iterations = scf.backward_failures = 0
+    times = []
+    for _ in range(ADJ_REPS):
+        sync()
+        t0 = time.perf_counter()
+        out, grads = adjoint_step(*setup)
+        sync()
+        times.append(time.perf_counter() - t0)
+    k2, k3 = eigh_kernel.launches, k3_counts()
+    iters, fails = scf.adjoint_iterations, scf.backward_failures
+    K2_BY_N[tag] = dict(eigh_kernel.launches_by_n)
+    med = float(np.median(times))
+    print(f"[{label}] {NMOL} x {MOLSIZE} AM1 f32 eps 1e-5, backward 1, "
+          f"{'pack_heavy' if pack else 'default flat layout'}: energy + "
+          f"gradient to U_ss, zeta_s, R {NMOL / med:.1f} molecules/s "
+          f"(median {med:.3f} s of {[round(t, 3) for t in times]}) on "
+          f"{card} | adjoint iterations {iters} over {ADJ_REPS} backwards | "
+          f"backward failures {fails} | K2 launches {k2} | K3 launches fwd "
+          f"{k3[0]} bwd {k3[1]}", flush=True)
+    check(all(bool(torch.isfinite(g).all()) for g in grads),
+          f"{tag}: non-finite gradients")
+    check(fails == 0, f"{tag}: {fails} molecules masked as backward failures")
+    check(k2 > 0 and k3[0] > 0 and k3[1] > 0, f"{tag}: K2 {k2}, K3 {k3} "
+          "launches")
+
+    m = 256
+    res = {}
+    for dtype, eps in ((torch.float32, 1.0e-5), (torch.float64, 1.0e-10)):
+        _, g = adjoint_step(*adjoint_setup(m, dtype, eps, pack))
+        res[dtype] = [t.double() for t in g]
+    err = [(a - b).abs().max().item() for a, b in
+           zip(res[torch.float32], res[torch.float64])]
+    print(f"[{label} f32 vs f64, {m} molecules] |d dHf/dU_ss| {err[0]:.2e} "
+          f"| |d dHf/dzeta_s| eV bohr {err[1]:.2e} | |d dHf/dR| eV/A "
+          f"{err[2]:.2e}", flush=True)
+    for e, tol, what in zip(err, (TOL_G_USS, TOL_G_ZETA, TOL_G_R),
+                            ("U_ss", "zeta_s", "R")):
+        check(e <= tol, f"{tag} f32 gradient by {what}: error {e} > {tol}")
+    return {"molecules_per_s": NMOL / med, "s_per_step": med,
+            "adjoint_iterations": iters, "backward_failures": fails,
+            "k2_launches": k2, "k3_launches": k3,
+            "f32_vs_f64_max_abs": dict(zip(("dU_ss", "dzeta_s", "dR"),
+                                           err))}
+
+
+def hessian_batch(dtype, eps):
+    """HESS_NMOL headline molecules (jitter 0.02: exact symmetric
+    geometries, CH4 or NH3, have degenerate occupied levels, across which
+    a second derivative of eigh divides by their rounding, as
+    tests/test_second_order.py notes), backward mode 2 on converger 1."""
+    const, tables, cfg, species, coords = headline_setup(
+        HESS_NMOL, dtype, eps, 1.0e-4, use_sp2=False)
+    return (const, tables, dataclasses.replace(cfg, scf=dataclasses.replace(
+        cfg.scf, converger=(1,), backward=2, backward_scan_iters=HESS_ITERS,
+        raise_on_forward_failure=False)), species, coords)
+
+
+def coordinate_hessians(const, tables, cfg, species, coords):
+    """(nmol, 24, 24) d2Hf/dR2 per molecule: the gradient with its graph,
+    then one backward per coordinate of every molecule at once."""
+    import pyseqm_tpu_torch as pt
+    x = coords.detach().clone().requires_grad_(True)
+    out = pt.energy(const, tables, cfg, species, x)
+    (g,) = torch.autograd.grad(out.Hf.sum(), x, create_graph=True)
+    n = 3 * x.shape[1]
+    g = g.reshape(x.shape[0], n)
+    H = torch.stack([torch.autograd.grad(g[:, k].sum(), x,
+                                         retain_graph=True)[0].reshape(-1, n)
+                     for k in range(n)], dim=1)
+    return H.double(), int(out.notconverged.sum().item())
+
+
+def occupied_gaps(const, tables, cfg, species, coords, idx):
+    """The smallest gap between occupied orbital energies (eV) of the
+    molecules ``idx``: a second derivative of eigh divides by it."""
+    import pyseqm_tpu_torch as pt
+    cfg = dataclasses.replace(cfg, eig=True, scf=dataclasses.replace(
+        cfg.scf, backward=0))
+    out = pt.energy(const, tables, cfg, species[idx], coords[idx])
+    nocc = pt.make_system(const, species[idx], coords[idx]).nocc
+    return [torch.diff(torch.sort(e[:n]).values).min().item()
+            for e, n in zip(out.e, nocc.tolist())]
+
+
+def phase_hessian(card):
+    """Mode-2 Hessians at float64 (K3 float64 and its second derivative)
+    and float32 (K2, K3 float32), the float64 one again with the plain
+    apply in place of the kernels."""
+    from pyseqm_tpu_torch.ops import eigh_kernel, tetci
+    from pyseqm_tpu_torch.ops import wapply_kernel as wk
+    runs, counts = {}, {}
+    for dtype, eps in ((torch.float64, 1.0e-10), (torch.float32, 1.0e-5)):
+        setup = hessian_batch(dtype, eps)
+        sync()
+        k2_reset()
+        k3_reset()
+        t0 = time.perf_counter()
+        H, nc = coordinate_hessians(*setup)
+        sync()
+        dt = time.perf_counter() - t0
+        counts[dtype] = (eigh_kernel.launches, k3_counts())
+        if dtype == torch.float32:
+            K2_BY_N["hessian"] = dict(eigh_kernel.launches_by_n)
+        runs[dtype] = H
+        print(f"[20 hessian {str(dtype)[6:]}] {HESS_NMOL} x {MOLSIZE} AM1, "
+              f"converger 1, {HESS_ITERS} unrolled iterations: 24x24 "
+              f"Hessians in {dt:.2f} s per batch on {card} | unconverged "
+              f"{nc} | K2 launches {counts[dtype][0]} | K3 launches fwd "
+              f"{counts[dtype][1][0]} bwd {counts[dtype][1][1]}",
+              flush=True)
+        check(bool(torch.isfinite(H).all()), f"non-finite {dtype} Hessian")
+    H64, H32 = runs[torch.float64], runs[torch.float32]
+    with patched(tetci, "w_apply", wk.w_apply_reference):
+        k3_reset()
+        Hp, _ = coordinate_hessians(*hessian_batch(torch.float64, 1.0e-10))
+        sync()
+        check(k3_counts() == (0, 0), "the plain-apply Hessian launched K3")
+    scale = H64.abs().max().item()
+    asym = (H64 - H64.transpose(1, 2)).abs().max().item() / scale
+    kern = (H64 - Hp).abs().max().item() / Hp.abs().max().item()
+    per_mol = H64.abs().amax(dim=(1, 2))
+    f32 = ((H32 - H64).abs().amax(dim=(1, 2)) / per_mol)
+    worst = torch.argsort(f32, descending=True)[:3]
+    gaps = occupied_gaps(*hessian_batch(torch.float64, 1.0e-10), worst)
+    sp = hessian_batch(torch.float64, 1.0e-10)[3][worst].cpu().numpy()
+    p99 = torch.quantile(f32, 0.99).item()
+    print(f"[20 hessian checks] max|H| {scale:.2f} eV/A^2 | f64 asymmetry "
+          f"{asym:.1e} of max|H| | f64 kernels vs plain apply {kern:.1e} "
+          f"| f32 vs f64 per molecule, of its max|H|: {fmt(f32)} | worst "
+          f"molecules (index, Z, error, smallest gap between occupied "
+          f"levels in eV): " + ", ".join(
+              f"{i} {z[z > 0].tolist()} {f32[i].item():.1e} {g:.2e}"
+              for i, z, g in zip(worst.tolist(), sp, gaps)), flush=True)
+    check(asym <= TOL_HESS_SYM, f"f64 Hessian asymmetry {asym}")
+    check(kern <= TOL_HESS_KERNEL, f"f64 Hessian kernels vs plain {kern}")
+    check(p99 <= TOL_HESS_F32_P99 and f32.max().item() <= TOL_HESS_F32_MAX,
+          f"f32 Hessian error p99 {p99}, max {f32.max().item()}")
+    k3 = tuple(a + b for a, b in zip(counts[torch.float64][1],
+                                     counts[torch.float32][1]))
+    check(k3[0] > 0 and k3[1] > 0, f"K3 launches on the Hessian path {k3}")
+    check(counts[torch.float32][0] > 0, "K2 was not launched on the f32 "
+          "Hessian path")
+    return {"nmol": HESS_NMOL, "max_abs_H": scale, "f64_asymmetry": asym,
+            "f64_kernel_vs_plain": kern, "f32_vs_f64_max": f32.max().item(),
+            "f32_vs_f64_p99": p99, "f32_vs_f64_median": f32.median().item(),
+            "worst_occupied_gap_eV": gaps[0],
+            "k2_launches": counts[torch.float32][0], "k3_launches": k3}
+
+
+def phase_flat_split(card):
+    """The class-segmented flat pair list at full width (hcore_split,
+    fock(WPackSplit): K3 on the XX slice, the XH and HH slices plain), the
+    scf-eigh configuration; 3 chained energy calls as phase 9."""
+    import pyseqm_tpu_torch as pt
+    const, tables, cfg, species, coords = headline_setup(
+        NMOL, torch.float32, 1.0e-5, 1.0e-4, use_sp2=False)
+    cfg = dataclasses.replace(cfg, pack_pairs=True, dense_pair_grid=False)
+    out = pt.energy(const, tables, cfg, species, coords)     # warm-up
+    check(type(out.w).__name__ == "WPackSplit", f"flat-split ran on "
+          f"{type(out.w).__name__}")
+    n_xx = out.w.xx.ri.shape[1]
+    sync()
+    k3_reset()
+    nc = 0
+    c = coords
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(SCF_REPEATS):
+        out = pt.energy(const, tables, cfg, species, c)
+        c = c + 1.0e-7 * out.Hf[:, None, None]
+        nc += int(out.notconverged.sum().item())
+    sync()
+    dt = time.perf_counter() - t0
+    k3 = k3_counts()
+    mps = SCF_REPEATS * NMOL / dt
+    print(f"[21 flat-split] {NMOL} x {MOLSIZE} AM1 f32 eps 1e-5, pack_pairs "
+          f"with the flat pair list ({n_xx} XX pairs per molecule through "
+          f"K3): {mps:.1f} molecules/s ({dt / SCF_REPEATS:.3f} s per call) "
+          f"on {card} | notconverged {nc} | K3 launches fwd {k3[0]} bwd "
+          f"{k3[1]}", flush=True)
+    check(nc == 0, f"{nc} flat-split molecules not converged")
+    check(k3[0] > 0, "K3 was not launched on the flat-split path")
+
+    m = 256
+    res = {}
+    for split in (True, False):
+        c_, t_, cfg_, sp_, co_ = headline_setup(m, torch.float64, 1.0e-10,
+                                                1.0e-7, use_sp2=False)
+        if split:
+            cfg_ = dataclasses.replace(cfg_, pack_pairs=True,
+                                       dense_pair_grid=False)
+        f, o = pt.force(c_, t_, cfg_, sp_, co_)
+        check(type(o.w).__name__ == ("WPackSplit" if split
+                                     else "WPackGridSplit"),
+              f"layout {type(o.w).__name__}")
+        res[split] = (o.Hf, f)
+    dh = (res[True][0] - res[False][0]).abs().max().item()
+    df = (res[True][1] - res[False][1]).abs().max().item()
+    print(f"[21 flat-split vs packed dense grid, {m} molecules f64] |dHf| "
+          f"{dh:.2e} eV | |dF| {df:.2e} eV/A", flush=True)
+    check(dh <= TOL_SPLIT_HF and df <= TOL_SPLIT_F,
+          f"flat-split vs dense grid: |dHf| {dh}, |dF| {df}")
+    return {"molecules_per_s": mps, "s_per_call": dt / SCF_REPEATS,
+            "k3_launches": k3, "xx_pairs": n_xx, "dHf_vs_dense": dh,
+            "dF_vs_dense": df}
+
+
+def phase_convergers():
+    """Converger (0, 0.0), (1,) and (2,) on 256 headline molecules at
+    float64 reach one Hf (tests/test_aux.py)."""
+    import pyseqm_tpu_torch as pt
+    hf = {}
+    for conv in ((0, 0.0), (1,), (2,)):
+        const, tables, cfg, species, coords = headline_setup(
+            256, torch.float64, 1.0e-10, 1.0e-7, use_sp2=False)
+        cfg = dataclasses.replace(cfg, scf=dataclasses.replace(
+            cfg.scf, converger=conv, max_iter=1000))
+        hf[conv] = pt.energy(const, tables, cfg, species, coords).Hf
+    d = {str(c): (h - hf[(2,)]).abs().max().item() for c, h in hf.items()
+         if c != (2,)}
+    print(f"[22 convergers, 256 molecules f64] max |Hf - Hf(2,)| eV: "
+          + " | ".join(f"{c} {e:.1e}" for c, e in d.items()), flush=True)
+    check(max(d.values()) <= TOL_CONV, f"convergers disagree: {d}")
+    return d
+
+
 def k3_timing(ri, U, X, perm, tag, flush):
     """K3 on one path's own operands (the exchange apply of its Fock
     build): each kernel launch alone (median of 20, device time), with its
@@ -1633,6 +2030,7 @@ def main():
         worst = phase_kernel_parity()
     with Phase("13 K3 parity"):
         worst3 = phase_k3_parity()
+        worst3_second = phase_k3_second_order()
     with Phase("4 main path"), k3_tap() as k3_head:
         (md, species, state, launches, sps, parts, per_mol, k3_main,
          k3_step) = phase_main_path(card)
@@ -1673,16 +2071,41 @@ def main():
     with Phase("16 nanostar dense"):
         nano_dn, k3_nano_dn_in = phase_nanostar_dense(card, nano_ref)
     torch.cuda.empty_cache()
+    with Phase("19 scf-adjoint"):
+        adj = phase_scf_adjoint(card, True)
+    torch.cuda.empty_cache()
+    with Phase("19 scf-adjoint flat"):
+        adj_flat = phase_scf_adjoint(card, False)
+    torch.cuda.empty_cache()
+    with Phase("20 hessian"):
+        hess = phase_hessian(card)
+    torch.cuda.empty_cache()
+    with Phase("21 flat-split"):
+        split = phase_flat_split(card)
+    torch.cuda.empty_cache()
+    with Phase("22 convergers"):
+        convergers = phase_convergers()
+    torch.cuda.empty_cache()
+    by_path.update(scf_adjoint=adj["k2_launches"],
+                   scf_adjoint_flat=adj_flat["k2_launches"],
+                   hessian=hess["k2_launches"])
+    for path in ("scf_adjoint", "scf_adjoint_flat", "hessian"):
+        check(by_path[path] > 0, f"K2 was not launched on the {path} path")
 
     k3_paths = {"xlbomd_sp2": k3_main, "scf_eigh": scf_eigh["k3_launches"],
                 "eig_true": k3_eig, "xlbomd_eigh": k3_xl,
                 "flat_default": flat["k3_launches"],
                 "nanostar_packed": nano_pk["k3_launches"],
-                "nanostar_dense": nano_dn["k3_launches"]}
+                "nanostar_dense": nano_dn["k3_launches"],
+                "scf_adjoint": adj["k3_launches"],
+                "scf_adjoint_flat": adj_flat["k3_launches"],
+                "hessian": hess["k3_launches"],
+                "flat_split": split["k3_launches"]}
     for path, (nf, nb) in k3_paths.items():
         check(nf > 0, f"K3 forward was not launched on the {path} path")
     for path in ("xlbomd_sp2", "eig_true", "xlbomd_eigh", "nanostar_packed",
-                 "nanostar_dense"):
+                 "nanostar_dense", "scf_adjoint", "scf_adjoint_flat",
+                 "hessian"):
         check(k3_paths[path][1] > 0, f"K3 backward was not launched on the "
               f"{path} path")
     xch = (1, 3, 2, 4)
@@ -1710,7 +2133,8 @@ def main():
           "launches_by_path_and_n": K2_BY_N,
           "ptxas": ptxas["eigh"],
           "phases": ["8 parity", "9 scf-eigh", "10 eig=True",
-                     "11 xlbomd-eigh", "12 timing", "14 flat default"]}
+                     "11 xlbomd-eigh", "12 timing", "14 flat default",
+                     "19 scf-adjoint", "20 hessian"]}
     k1["launches_by_path"] = {"xlbomd_sp2": launches}
     k1["ptxas"] = ptxas["sp2"]
     k3f = k3_entry("wapply_fwd", "fwd", "tools/wapply_pallas.py:181",
@@ -1722,6 +2146,12 @@ def main():
     for k3, kind in ((k3f, "fwd"), (k3b, "bwd")):
         k3["ptxas"] = {n: e for n, e in ptxas["wapply"].items()
                        if n.startswith(kind)}
+        # under create_graph WApply's backward is WApplyBwd: its forward
+        # the backward kernel, its backward three forward applies and
+        # plain torch for the terms through U (phase 13)
+        k3["second_derivative"] = {
+            "route": "WApplyBwd", "max_abs_err_synthetic": {
+                str(d)[6:]: e for d, e in worst3_second.items()}}
     k3f["timer_cross_check"] = timer_check
     k3f["launches_per_xl_step"], k3b["launches_per_xl_step"] = k3_step
     print(json.dumps({"main_path": {"steps_per_s": sps,
@@ -1729,7 +2159,10 @@ def main():
                       "scf_eigh": scf_eigh, "eig_true": eig_acc,
                       "xlbomd_eigh": xl_eigh, "flat_default": flat,
                       "nanostar_packed": nano_pk,
-                      "nanostar_dense": nano_dn}), flush=True)
+                      "nanostar_dense": nano_dn, "scf_adjoint": adj,
+                      "scf_adjoint_flat": adj_flat, "hessian": hess,
+                      "flat_split": split, "convergers": convergers}),
+          flush=True)
     print(json.dumps({"kernels": [k1, k2, k3f, k3b]}), flush=True)
     print(card_line(), flush=True)
     print(f"elapsed {time.perf_counter() - T_START:.1f} s", flush=True)

@@ -1,9 +1,11 @@
 """pyseqm_tpu_torch: the PyTorch/CUDA port of pyseqm_tpu.
 
 Batched NDDO semiempirical quantum chemistry (AM1/MNDO/PM3) on an NVIDIA
-GPU: energies, forces by autograd and XL-BOMD molecular dynamics on the
-flat pair list, the ordered dense grid, or the class-segmented dense grid
-with the static packed electronic state; densities from the one-sided
+GPU: energies, forces and parameter gradients by autograd (the SCF
+differentiated by its recursive adjoint or unrolled, Hessians included)
+and XL-BOMD molecular dynamics on the flat pair list, the ordered dense
+grid, the class-segmented flat pair list, or the class-segmented dense
+grid with the static packed electronic state; densities from the one-sided
 Jacobi eigensolver (csrc/eigh.cu) or SP2 purification (csrc/sp2.cu), and
 every Fock build's two-electron contraction from the fused apply
 (csrc/wapply.cu), all hand-written CUDA kernels.  Entry
@@ -18,7 +20,7 @@ from .ops.density import (packed_heavy_count,  # noqa: F401
                           packed_orbital_size, packed_solver_size)
 from .parameters import (PARAMETER_LIST, load_element_tables,  # noqa: F401
                          tables_from_numpy)
-from .scf import SCFConfig  # noqa: F401
+from .scf import SCFConfig, SCFConvergenceError  # noqa: F401
 from .system import System, make_system, sort_species  # noqa: F401
 
 disable_tf32()

@@ -5,9 +5,12 @@ Energy / Force / Hamiltonian modules, seqm/basics.py:216-390).  The
 integral layout is chosen as the JAX package chooses it
 (``_resolve_pair_layout``): the flat pair list for small molecules, the
 ordered dense grid at A >= 64, and the class-segmented dense grid with the
-static packed SCF when ``SCFConfig.pack_heavy`` is set; plus the orbital
-energies and per-MO atomic charges of ``eig=True``.  The class-segmented
-flat pair list (``pack_pairs`` without the dense grid) is not ported yet.
+static packed SCF when ``SCFConfig.pack_heavy`` is set, or the
+class-segmented flat pair list (``pack_pairs`` with
+``dense_pair_grid=False``); plus the orbital energies and per-MO atomic
+charges of ``eig=True``.  The density differentiates by the SCF's backward
+mode (``SCFConfig.backward``): constant (Hellmann-Feynman), the recursive
+adjoint, or the unrolled fixed point.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ from ..ops.energy import (assemble_energies, elec_energy_isolated_atom,
                           elec_energy_tf, pair_nuclear_energy,
                           pair_nuclear_energy_dense)
 from ..ops.fock import fock, fock_packed_split
-from ..ops.hcore import hcore, hcore_dense, hcore_dense_split
+from ..ops.hcore import hcore, hcore_dense, hcore_dense_split, hcore_split
 from ..ops.matrix import grid_to_mat
 from ..ops.tetci import from_grid
 from ..parameters import gather_atom_parameters, load_element_tables
@@ -59,7 +62,7 @@ class SEQMConfig:
     remat_integrals: Optional[bool] = None
     # class-segmented pair list keyed on scf.pack_heavy.  None = auto: on
     # when pack_heavy is set; on the flat pair list (dense_pair_grid
-    # False) it selects hcore_split / fock(WPackSplit), not ported yet
+    # False) it selects hcore_split / fock(WPackSplit)
     pack_pairs: Optional[bool] = None
 
 
@@ -127,7 +130,8 @@ def _orbital_charges(sys: System, v: torch.Tensor) -> torch.Tensor:
 def _resolve_pair_layout(cfg: SEQMConfig, A: int) -> Tuple[bool, Optional[int]]:
     """(dense, packK): the integral layout, as the JAX package decides it.
     The class-segmented dense grid (pack_heavy) runs the packed electronic
-    chain; without packing the dense grid only pays off at large A."""
+    chain; without packing the dense grid only pays off at large A.
+    packK without the dense grid is the class-segmented flat pair list."""
     pp = cfg.pack_pairs
     if pp is None:
         pp = cfg.scf.pack_heavy is not None
@@ -138,11 +142,6 @@ def _resolve_pair_layout(cfg: SEQMConfig, A: int) -> Tuple[bool, Optional[int]]:
     dense = cfg.dense_pair_grid
     if dense is None:
         dense = A >= 64 or packK is not None
-    if packK is not None and not dense:
-        raise NotImplementedError(
-            "the class-segmented flat pair list (pack_pairs with "
-            "dense_pair_grid=False: hcore_split, fock(WPackSplit)) is not "
-            "ported yet; it is queued under ROADMAP M14")
     return dense, packK
 
 
@@ -164,17 +163,17 @@ def _integral_stack(const, sys, p, cfg, packed_m: Optional[int] = None):
     (the flat pairs extracted from the grid under dense_fock=False).
 
     Large molecules build the integrals on the dense grid (hcore_dense:
-    no per-pair gathers); the class-segmented path cuts hydrogen pairs to
-    their 4- and 1-integral classes.  With remat_integrals (auto at
-    A >= 32) the build is checkpointed: the force backward recomputes it
-    instead of keeping every intermediate.
+    no per-pair gathers); the class-segmented paths (hcore_dense_split,
+    hcore_split) cut hydrogen pairs to their 4- and 1-integral classes.
+    With remat_integrals (auto at A >= 32) the build is checkpointed: the
+    force backward recomputes it instead of keeping every intermediate.
     """
     A = sys.species.shape[1]
     dense, packK = _resolve_pair_layout(cfg, A)
-    if packed_m is not None and packK is None:
+    if packed_m is not None and not (dense and packK is not None):
         raise ValueError("packed_m requires the class-segmented dense path "
-                         "(scf.pack_heavy)")
-    if packK is not None:
+                         "(dense_pair_grid + pack_pairs)")
+    if dense and packK is not None:
         def build(sys, p):
             return hcore_dense_split(const, sys, p, packK, packed_m,
                                      cfg.pair_outer_cutoff,
@@ -183,6 +182,9 @@ def _integral_stack(const, sys, p, cfg, packed_m: Optional[int] = None):
         def build(sys, p):
             return hcore_dense(const, sys, p, cfg.pair_outer_cutoff,
                                cfg.precise_overlap)
+    elif packK is not None:
+        def build(sys, p):
+            return hcore_split(const, sys, p, packK, cfg.precise_overlap)
     else:
         def build(sys, p):
             return hcore(const, sys, p, False, cfg.precise_overlap)
@@ -211,7 +213,8 @@ def _nuclear_term(const, sys, w, cfg, p):
     if hasattr(w, "rig"):
         return pair_nuclear_energy_dense(const, sys, w.rig[..., 0],
                                          cfg.method, p, cfg.pair_outer_cutoff)
-    return pair_nuclear_energy(const, sys, w.ri[..., 0], cfg.method, p), None
+    gam = w.gam() if hasattr(w, "gam") else w.ri[..., 0]     # (ss|ss)
+    return pair_nuclear_energy(const, sys, gam, cfg.method, p), None
 
 
 def _species_tensor(species, device) -> torch.Tensor:
@@ -247,7 +250,10 @@ def energy(const: Constants, tables: Mapping[str, torch.Tensor],
            charges=None) -> EnergyOutput:
     """Single-point SCF energy for a batch of molecules (cf. Energy.forward,
     basics.py:271-346).  Differentiable with respect to ``coordinates``
-    (Hellmann-Feynman: the converged density is held constant)."""
+    and learned parameters; the converged density is held constant
+    (backward mode 0, Hellmann-Feynman) or differentiated by the SCF
+    adjoint (mode 1) or through the unrolled iterations (mode 2, also
+    twice)."""
     check_species(cfg, tables, species, charges)
     species = _species_tensor(species, coordinates.device)
     A = species.shape[1]

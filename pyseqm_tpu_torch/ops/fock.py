@@ -3,10 +3,11 @@
 PyTorch counterpart of ``pyseqm_tpu/ops/fock.py`` (cf. the reference fock,
 seqm/seqm_functions/fock.py:6-139): ``fock_packed_split`` in the static
 packed layout, and ``fock`` on the block grid for the flat pair list
-(WPack), the ordered dense grid (WPackGrid) and the class-segmented grid
-(WPackGridSplit).  Every two-electron contraction is the fused apply K3
-(tetci._w_apply).  The class-segmented flat pair list (WPackSplit) is not
-ported yet.
+(WPack), the ordered dense grid (WPackGrid), the class-segmented grid
+(WPackGridSplit) and the class-segmented flat pair list (WPackSplit).
+Every 22-integral two-electron contraction is the fused apply K3
+(tetci._w_apply); X-H pairs are a 4x4 elementwise block product and H-H
+pairs a scalar.
 """
 from __future__ import annotations
 
@@ -15,9 +16,10 @@ from typing import Dict
 import torch
 
 from ..system import System
-from .matrix import assemble_packed_mat, diag_blocks, grid_to_mat, mat_to_grid
-from .tetci import (WPack, WPackGrid, WPackGridSplit, w_coulomb_i,
-                    w_coulomb_j, w_exchange)
+from .matrix import (assemble_packed_mat, block00, col0_block, diag_blocks,
+                     grid_to_mat, mat_to_grid)
+from .tetci import (WPack, WPackGrid, WPackGridSplit, WPackSplit,
+                    w_coulomb_i, w_coulomb_j, w_exchange)
 
 
 def _one_center(Pd, gss, gsp, gpp, gp2, hsp):
@@ -96,8 +98,9 @@ def fock(sys: System, P: torch.Tensor, M: torch.Tensor, w,
          p: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Fock matrix (nmol, 4A, 4A) from the total density P (nmol, 4A, 4A),
     the core Hamiltonian grid M (nmol, A, A, 4, 4), the compact integrals w
-    (WPack, WPackGrid or WPackGridSplit; w is never materialized) and the
-    per-atom parameters g_ss, g_sp, g_pp, g_p2, h_sp (each (nmol, A))."""
+    (WPack, WPackGrid, WPackGridSplit or WPackSplit; w is never
+    materialized) and the per-atom parameters g_ss, g_sp, g_pp, g_p2, h_sp
+    (each (nmol, A))."""
     nmol, A = sys.species.shape
     iu, ju = sys.pair_i, sys.pair_j
     Pg = mat_to_grid(P, A)
@@ -145,15 +148,44 @@ def fock(sys: System, P: torch.Tensor, M: torch.Tensor, w,
         F[:, idx, idx] += tmp + dsum
         return grid_to_mat(F)
 
-    if not isinstance(w, WPack):
-        raise NotImplementedError(f"fock() with {type(w).__name__} "
-                                  "integrals is not ported yet")
-    # flat pair list: two-center Coulomb on the diagonal blocks
-    # (fock.py:80-110) and exchange on the pair blocks (fock.py:117-131)
-    dsum = torch.zeros_like(Pd).index_add(
-        1, iu, w_coulomb_i(w, Pd[:, ju])).index_add(
-        1, ju, w_coulomb_j(w, Pd[:, iu]))
-    x = -0.5 * w_exchange(w, Pg[:, iu, ju])
+    if isinstance(w, WPackSplit):
+        # class-segmented pairs (system.pair_index_packed): XX pairs pay
+        # the fused apply, XH pairs a 4x4 elementwise block product (w[ab,
+        # cd] = wblk[ab] delta_c0 delta_d0), HH pairs a scalar (ss|ss); the
+        # per-pair blocks of the three segments are scattered together
+        n_xx, n_xh = w.xx.ri.shape[1], w.xh.shape[1]
+        s_xx = slice(0, n_xx)
+        s_xh = slice(n_xx, n_xx + n_xh)
+        s_hh = slice(n_xx + n_xh, None)
+        i_x, j_x = iu[s_xx], ju[s_xx]
+        i_h, j_h = iu[s_xh], ju[s_xh]
+        i_l, j_l = iu[s_hh], ju[s_hh]
+        ss = Pd[..., 0, 0]                              # (nmol, A)
+        to_i = torch.cat([
+            w_coulomb_i(w.xx, Pd[:, j_x]),
+            w.xh * ss[:, j_h, None, None],
+            block00(w.hh * ss[:, j_l])], dim=1)
+        to_j = torch.cat([
+            w_coulomb_j(w.xx, Pd[:, i_x]),
+            block00((w.xh * Pd[:, i_h]).sum(dim=(-1, -2))),
+            block00(w.hh * ss[:, i_l])], dim=1)
+        dsum = torch.zeros_like(Pd).index_add(1, iu, to_i).index_add(
+            1, ju, to_j)
+        x = torch.cat([
+            -0.5 * w_exchange(w.xx, Pg[:, i_x, j_x]),
+            col0_block(-0.5 * (w.xh * Pg[:, i_h, j_h, :, 0][..., None, :])
+                       .sum(dim=-1)),
+            block00(-0.5 * w.hh * Pg[:, i_l, j_l, 0, 0])], dim=1)
+    elif isinstance(w, WPack):
+        # flat pair list: two-center Coulomb on the diagonal blocks
+        # (fock.py:80-110) and exchange on the pair blocks (fock.py:117-131)
+        dsum = torch.zeros_like(Pd).index_add(
+            1, iu, w_coulomb_i(w, Pd[:, ju])).index_add(
+            1, ju, w_coulomb_j(w, Pd[:, iu]))
+        x = -0.5 * w_exchange(w, Pg[:, iu, ju])
+    else:
+        raise TypeError(f"fock() takes WPack, WPackGrid, WPackGridSplit or "
+                        f"WPackSplit integrals, not {type(w).__name__}")
     F[:, idx, idx] += tmp + dsum
     F[:, iu, ju] += x
     F[:, ju, iu] += x.transpose(-1, -2)

@@ -4,9 +4,9 @@ PyTorch counterpart of ``pyseqm_tpu/ops/hcore.py`` (cf. the reference
 hcore, seqm/seqm_functions/hcore.py:6-167): ``atom_multipoles``, the flat
 pair-list ``hcore`` (optionally placing its integrals on the grid),
 ``dense_pair_geometry``, the ordered-pair ``hcore_dense`` for large
-molecules and the class-segmented ``hcore_dense_split``, whose core
-Hamiltonian comes back as the static packed matrix or as the block grid.
-The class-segmented flat ``hcore_split`` is not ported yet.
+molecules, the class-segmented ``hcore_dense_split``, whose core
+Hamiltonian comes back as the static packed matrix or as the block grid,
+and the class-segmented flat pair list ``hcore_split``.
 """
 from __future__ import annotations
 
@@ -15,11 +15,12 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from ..constants import Constants, LENGTH_CONVERSION_FACTOR, OVERLAP_CUTOFF
-from ..system import System
-from .matrix import assemble_packed_mat
+from ..system import System, pair_segment_sizes
+from .matrix import assemble_packed_mat, block00, col0_block
 from .multipole import dd_qq, rho1_additive, rho2_additive
 from .overlap import diatom_overlap, diatom_overlap_hh, diatom_overlap_xh
-from .tetci import (WPack, WPackGrid, WPackGridSplit, _core_block,
+from .tetci import (WPack, WPackGrid, WPackGridSplit, WPackSplit,
+                    _core_block,
                     frame_matrix, local_frame_integrals,
                     local_frame_integrals_hh, pair_w_pack, pair_w_xh,
                     to_grid)
@@ -118,6 +119,105 @@ def hcore(const: Constants, sys: System, p: Dict[str, torch.Tensor],
     if dense_grid:
         return M, to_grid(w, A, iu, ju)
     return M, w
+
+
+def hcore_split(const: Constants, sys: System, p: Dict[str, torch.Tensor],
+                K: int, precise_overlap: bool = True
+                ) -> Tuple[torch.Tensor, WPackSplit]:
+    """Class-segmented flat pair list: per-pair-class integral formulas on
+    the static segments of pair_index_packed (the System built with
+    make_system(heavy_count=K)).  XX pairs (i < j < K) run the full
+    22-integral pipeline, XH pairs (i < K <= j, j s-only by the
+    descending-Z sort) the 4-integral one, HH pairs (K <= i) the single
+    integral.  Matches hcore() on every physical matrix element; the dead
+    hydrogen p positions hold zeros.  Returns (M (nmol, A, A, 4, 4),
+    WPackSplit)."""
+    nmol, A = sys.species.shape
+    n_xx, n_xh, n_hh = pair_segment_sizes(A, K)
+    if sys.npairs != n_xx + n_xh + n_hh:
+        raise ValueError("System pair list does not match heavy_count "
+                         f"{K} (build with make_system(heavy_count={K}))")
+    segs = (slice(0, n_xx), slice(n_xx, n_xx + n_xh),
+            slice(n_xx + n_xh, None))
+    s_xx, s_xh, s_hh = segs
+    iu, ju = sys.pair_i, sys.pair_j
+    am = sys.atom_mask
+    z4 = lambda t: torch.zeros_like(t)                       # noqa: E731
+
+    mp = atom_multipoles(const, sys.species, p)
+    tore = const.tore[sys.species]
+    zeta = torch.stack([p["zeta_s"], p["zeta_p"]], dim=-1)   # (nmol, A, 2)
+    qn = const.qn_int[sys.species]
+    bi_full = torch.stack([p["beta_s"], p["beta_p"], p["beta_p"],
+                           p["beta_p"]], dim=-1)             # (nmol, A, 4)
+    ai = lambda v, s: v[:, iu[s]]                            # noqa: E731
+    aj = lambda v, s: v[:, ju[s]]                            # noqa: E731
+    ov_mask = sys.pair_mask & (sys.rij <= OVERLAP_CUTOFF)
+    rij_ov = torch.where(ov_mask, sys.rij, torch.ones_like(sys.rij))
+
+    # ---- XX segment: full 22-integral pipeline ----
+    pm = sys.pair_mask[:, s_xx]
+    di = diatom_overlap(ai(qn, s_xx), aj(qn, s_xx), sys.xij[:, s_xx],
+                        rij_ov[:, s_xx], ai(zeta, s_xx), aj(zeta, s_xx),
+                        precise=precise_overlap)
+    di = torch.where(ov_mask[:, s_xx][..., None, None], di, z4(di))
+    off_xx = di * 0.5 * (ai(bi_full, s_xx)[..., :, None]
+                         + aj(bi_full, s_xx)[..., None, :])
+    wxx, e1b, e2a = pair_w_pack(
+        sys.rij[:, s_xx], sys.xij[:, s_xx], ai(tore, s_xx), aj(tore, s_xx),
+        ai(mp["dd"], s_xx), aj(mp["dd"], s_xx),
+        ai(mp["qq"], s_xx), aj(mp["qq"], s_xx),
+        ai(mp["rho0"], s_xx), aj(mp["rho0"], s_xx),
+        ai(mp["rho1"], s_xx), aj(mp["rho1"], s_xx),
+        ai(mp["rho2"], s_xx), aj(mp["rho2"], s_xx))
+    wxx = WPack(ri=torch.where(pm[..., None], wxx.ri, z4(wxx.ri)), U=wxx.U)
+    ei_xx = torch.where(pm[..., None, None], e1b, z4(e1b))
+    ej_xx = torch.where(pm[..., None, None], e2a, z4(e2a))
+
+    # ---- XH segment: 4-integral pipeline, s-only ket ----
+    pm = sys.pair_mask[:, s_xh]
+    col = diatom_overlap_xh(ai(qn, s_xh), aj(qn, s_xh), sys.xij[:, s_xh],
+                            rij_ov[:, s_xh], ai(zeta, s_xh),
+                            aj(p["zeta_s"], s_xh), precise=precise_overlap)
+    col = torch.where(ov_mask[:, s_xh][..., None], col, z4(col))
+    off_xh = col * 0.5 * (ai(bi_full, s_xh)
+                          + aj(p["beta_s"], s_xh)[..., None])
+    wxh, e1b, e2a_ss = pair_w_xh(
+        sys.rij[:, s_xh], sys.xij[:, s_xh], ai(tore, s_xh), aj(tore, s_xh),
+        ai(mp["dd"], s_xh), ai(mp["qq"], s_xh),
+        ai(mp["rho0"], s_xh), aj(mp["rho0"], s_xh),
+        ai(mp["rho1"], s_xh), ai(mp["rho2"], s_xh))
+    wxh = torch.where(pm[..., None, None], wxh, z4(wxh))
+    ei_xh = torch.where(pm[..., None, None], e1b, z4(e1b))
+    ej_xh = block00(torch.where(pm, e2a_ss, z4(e2a_ss)))
+
+    # ---- HH segment: single-integral pipeline ----
+    pm = sys.pair_mask[:, s_hh]
+    s111 = diatom_overlap_hh(ai(qn, s_hh), aj(qn, s_hh), rij_ov[:, s_hh],
+                             ai(p["zeta_s"], s_hh), aj(p["zeta_s"], s_hh),
+                             precise=precise_overlap)
+    s111 = torch.where(ov_mask[:, s_hh], s111, z4(s111))
+    off_hh = s111 * 0.5 * (ai(p["beta_s"], s_hh) + aj(p["beta_s"], s_hh))
+    whh = local_frame_integrals_hh(sys.rij[:, s_hh], ai(mp["rho0"], s_hh),
+                                   aj(mp["rho0"], s_hh))
+    whh = torch.where(pm, whh, z4(whh))
+    ei_hh = block00(-aj(tore, s_hh) * whh)
+    ej_hh = block00(-ai(tore, s_hh) * whh)
+
+    # ---- assemble the symmetric grid: each pair once per orientation ----
+    off = torch.cat([off_xx, col0_block(off_xh), block00(off_hh)], dim=1)
+    zA = torch.zeros_like(p["U_ss"])
+    dblk = torch.diag_embed(torch.stack(
+        [torch.where(am, p["U_ss"], zA)] + 3 * [torch.where(am, p["U_pp"],
+                                                            zA)], dim=-1))
+    dblk = dblk.index_add(1, iu, torch.cat([ei_xx, ei_xh, ei_hh], dim=1))
+    dblk = dblk.index_add(1, ju, torch.cat([ej_xx, ej_xh, ej_hh], dim=1))
+    M = off.new_zeros((nmol, A, A, 4, 4))
+    idx = torch.arange(A, device=off.device)
+    M[:, iu, ju] = off
+    M[:, ju, iu] = off.transpose(-1, -2)
+    M[:, idx, idx] = dblk
+    return M, WPackSplit(xx=wxx, xh=wxh, hh=whh)
 
 
 def dense_pair_geometry(sys: System, pair_outer_cutoff: float):

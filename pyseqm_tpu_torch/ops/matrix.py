@@ -21,6 +21,16 @@ def mat_to_grid(m, A):
     return m.reshape(nmol, A, 4, A, 4).transpose(2, 3)
 
 
+def block00(s):
+    """(..., 4, 4) blocks holding the scalars s (...) at [0, 0]."""
+    return nnf.pad(s[..., None, None], (0, 3, 0, 3))
+
+
+def col0_block(c):
+    """(..., 4, 4) blocks holding the columns c (..., 4) at [:, 0]."""
+    return nnf.pad(c[..., None], (0, 3))
+
+
 def diag_blocks(m, A):
     """(nmol, 4A, 4A) -> (nmol, A, 4, 4) diagonal atom blocks."""
     return torch.diagonal(mat_to_grid(m, A), dim1=1, dim2=2).permute(

@@ -6,7 +6,8 @@ seqm/seqm_functions/cal_par.py:8-196).  rho1/rho2 are defined implicitly by
 the hsp/hpp match conditions of the Klopman point-charge model and solved
 with a fixed-iteration secant method; their gradients are the analytic
 implicit-function derivatives (autograd Functions), so autograd never walks
-the secant loop.  ``mask`` selects the atoms whose inputs are physical;
+the secant loop.  Those derivatives are once differentiable: a second
+derivative raises, as it does through the JAX package's custom_vjp.  ``mask`` selects the atoms whose inputs are physical;
 the rest are computed on sanitized values and zeroed.
 """
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..constants import EV
 
@@ -75,6 +77,7 @@ class _Rho1(torch.autograd.Function):
         return rho1
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, g):
         # implicit derivative (cf. cal_par.py:92-110):
         # hsp(a.u.) = 1/(4 rho1) - 1/(4 sqrt(D1^2 + rho1^2))
@@ -109,6 +112,7 @@ class _Rho2(torch.autograd.Function):
         return rho2
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, g):
         # implicit derivative (cf. cal_par.py:175-196):
         # hpp(a.u.) = 1/(8 rho2) - 1/(4 sqrt(D2^2+rho2^2))

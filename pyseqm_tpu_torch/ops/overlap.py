@@ -247,7 +247,13 @@ class _STf(torch.autograd.Function):
     alternating-sign Hf cancellation); its derivative feeds forces, whose
     f32 noise floor is orders above the ~1e-7 relative gap between the
     plain and double-float derivatives, and autograd through every
-    two_sum/two_prod would dominate the Hcore backward."""
+    two_sum/two_prod would dominate the Hcore backward.
+
+    The gradient is the plain chain's.  Under ``create_graph`` (grad mode
+    on in ``backward``) it is taken on the saved inputs with their graph,
+    so it carries the plain chain's second derivative, as the JAX
+    custom_jvp's tangent does under forward-over-reverse; otherwise on
+    detached copies, so a force step records nothing more."""
 
     @staticmethod
     def forward(ctx, mode, rij, zsi, zpi, zsj, zpj, j2, j3, j4):
@@ -259,20 +265,26 @@ class _STf(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *gs):
         rij, zsi, zpi, zsj, zpj, j2, j3, j4 = ctx.saved_tensors
-        ins = [t.detach().requires_grad_(need) for t, need in
-               zip((rij, zsi, zpi, zsj, zpj), ctx.needs_input_grad[1:6])]
+        higher = torch.is_grad_enabled()
+        need = ctx.needs_input_grad[1:6]
+        if higher:
+            ins = list((rij, zsi, zpi, zsj, zpj))
+        else:
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip((rij, zsi, zpi, zsj, zpj), need)]
         grads = [None] * 5
         with torch.enable_grad():
             outs = _s_combinations(*ins, j2, j3, j4, False, ctx.mode)
             pairs = [(o, g) for o, g in zip(outs, gs)
                      if o.requires_grad and g is not None]
-            want = [t for t in ins if t.requires_grad]
+            want = [t for t, n in zip(ins, need) if n]
             if pairs and want:
                 got = torch.autograd.grad([o for o, _ in pairs],
                                           want, [g for _, g in pairs],
-                                          allow_unused=True)
+                                          allow_unused=True,
+                                          create_graph=higher)
                 it = iter(got)
-                grads = [next(it) if t.requires_grad else None for t in ins]
+                grads = [next(it) if n else None for n in need]
         return (None, *grads, None, None, None)
 
 

@@ -422,6 +422,23 @@ def two_center_integrals(rij, xij, tore_i, tore_j, da, db, qa, qb,
             rotate_core(core_b, xij))
 
 
+class WPackSplit(NamedTuple):
+    """Class-segmented flat integrals over the pair_index_packed
+    enumeration (system.py) for heavy count K: xx the full pairs
+    (i < j < K), xh (nmol, n_xh, 4, 4) rotated (mu nu | ss) blocks
+    (i < K <= j), hh (nmol, n_hh) (ss|ss) integrals (K <= i < j); the
+    segment sizes are the arrays' lengths."""
+    xx: WPack
+    xh: torch.Tensor
+    hh: torch.Tensor
+
+    def gam(self) -> torch.Tensor:
+        """(ss|ss) per pair in segment order (the nuclear term's gamma);
+        rotation leaves xh[..., 0, 0] the local (ss|ss)."""
+        return torch.cat([self.xx.ri[..., 0], self.xh[..., 0, 0], self.hh],
+                         dim=-1)
+
+
 class WPackGridSplit(NamedTuple):
     """Class-segmented grid-resident integrals keyed on the batch-max heavy
     count K: xx the ordered (nmol, K, K) heavy sub-grid with full 22-integral

@@ -34,11 +34,22 @@ array in registers).  The kernels are instantiated for the three perms
 the package uses (``PERM_IDS``); another perm on a CUDA tensor raises.
 
 ``w_apply`` launches the kernels for CUDA tensors, through ``WApply`` (an
-autograd.Function, once differentiable: a second derivative raises) and
-raises if the build or a launch fails; for CPU tensors it runs
+autograd.Function whose backward is the K3 backward kernel) and raises if
+the build or a launch fails; for CPU tensors it runs
 ``w_apply_reference``, the contraction as small matrix products, whose
-backward is autograd through it.  Both kernels build at first use with
+derivatives are autograd through it.  Both kernels build at first use with
 nvcc into ``_build/`` next to this package (``ops/cuda_build.py``).
+
+Second derivatives (Hessians through a Fock build): under
+``create_graph`` ``WApply.backward`` returns its cotangents through
+``WApplyBwd``, whose forward is the K3 backward kernel (the first-order
+values stay the kernel's) and whose backward gives the second-order terms.
+The map X -> y is linear and its adjoint is the same contraction at the
+adjoint perm (``adjoint_perm``), and y is linear in ri; so the terms in
+the X and Yb directions are K3 forwards, and only the terms through U (the
+ri-U, X-U, Yb-U and U-U cross terms) are plain torch on the 4x4 cells,
+as the JAX package's plain ``_w_apply`` gets all of them from XLA.  A
+third derivative raises.
 """
 from __future__ import annotations
 
@@ -164,29 +175,151 @@ def _launch_bwd(ri, U, X, Yb, perm, need):
     return dri, dU, dX
 
 
+# the kernels' view of U: row 0 is e_0 and column 0 of rows 1-3 is 0
+# (frame_matrix's structure); only the 3x3 block is read
+_BLOCK = np.zeros((4, 4))
+_BLOCK[1:, 1:] = 1.0
+_E00 = np.zeros((4, 4))
+_E00[0, 0] = 1.0
+
+
+def adjoint_perm(perm):
+    """The perm of the adjoint contraction: free and contracted pairs
+    swapped, (1, 2, 3, 4) <-> (3, 4, 1, 2); (1, 3, 2, 4) is its own
+    adjoint, since w[ab, cd] is symmetric in a <-> b and c <-> d."""
+    p = tuple(perm)
+    if p == (1, 3, 2, 4):
+        return p
+    return (p[2], p[3], p[0], p[1])
+
+
+def _frame(U):
+    """U as the kernels read it: its 3x3 block inside the fixed frame."""
+    blk = torch.as_tensor(_BLOCK, dtype=U.dtype, device=U.device)
+    e00 = torch.as_tensor(_E00, dtype=U.dtype, device=U.device)
+    return U * blk + e00
+
+
+def _t_terms(Zl, perm):
+    """(..., 22, 4, 4): T_r[Zl] for every integral r."""
+    C = _t_contract(tuple(perm), Zl.dtype, Zl.device)
+    return (Zl.reshape(Zl.shape[:-2] + (16,)) @ C).reshape(
+        Zl.shape[:-2] + (22, 4, 4))
+
+
+def _bwd_plain(ri, V, X, Yb, perm):
+    """The K3 backward's formulas (module docstring) on the framed V:
+    (dri, dU on the 3x3 block, dX)."""
+    Vt = V.transpose(-1, -2)
+    Xl, Yl = Vt @ X @ V, Vt @ Yb @ V
+    TX = _t_terms(Xl, perm)
+    dri = (TX * Yl[..., None, :, :]).sum(dim=(-1, -2))
+    B = torch.einsum('...r,...rij->...ij', ri, TX)
+    Cl = torch.einsum('...r,...rij->...ij', ri,
+                      _t_terms(Yl, adjoint_perm(perm)))
+    dU = (Yb @ V @ B.transpose(-1, -2) + Yb.transpose(-1, -2) @ V @ B
+          + X @ V @ Cl.transpose(-1, -2) + X.transpose(-1, -2) @ V @ Cl)
+    blk = torch.as_tensor(_BLOCK, dtype=V.dtype, device=V.device)
+    return dri, dU * blk, V @ Cl @ Vt
+
+
+def _fwd(ri, U, X, perm):
+    """K3 forward on cells: the kernel for CUDA tensors, its plain version
+    (on the framed U) for CPU tensors."""
+    if ri.device.type == "cpu":
+        return w_apply_reference(ri, _frame(U), X, perm)
+    return _launch_fwd(ri.contiguous(), U.contiguous(), X.contiguous(), perm)
+
+
+def _bwd(ri, U, X, Yb, perm, need=(True, True, True)):
+    """K3 backward on cells, (dri, dU, dX) with None where ``need`` is
+    false: the kernel for CUDA tensors, its plain version for CPU
+    tensors."""
+    if ri.device.type == "cpu":
+        out = _bwd_plain(ri, _frame(U), X, Yb, perm)
+        return tuple(o if n else None for o, n in zip(out, need))
+    return _launch_bwd(ri, U, X, Yb.contiguous(), perm, need)
+
+
 class WApply(torch.autograd.Function):
-    """y = K3(ri, U, X) on cells (C, 22), (C, 4, 4), (C, 4, 4) of one CUDA
-    device and type; the backward is the K3 backward kernel, returning only
-    the cotangents asked for.  Once differentiable: double backward (the
-    Hessians of a later slice) raises instead of returning wrong second
-    derivatives."""
+    """y = K3(ri, U, X) on cells (C, 22), (C, 4, 4), (C, 4, 4) of one
+    device and type; the backward is the K3 backward kernel, returning
+    only the cotangents asked for, and under create_graph the same kernel
+    through ``WApplyBwd``, which carries the second derivative.  On CPU
+    tensors both run their plain versions (the tests' route)."""
 
     @staticmethod
     def forward(ctx, ri, U, X, perm):
         ri, U, X = ri.contiguous(), U.contiguous(), X.contiguous()
         ctx.perm = perm
         ctx.save_for_backward(ri, U, X)
-        return _launch_fwd(ri, U, X, perm)
+        return _fwd(ri, U, X, perm)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, yb):
         ri, U, X = ctx.saved_tensors
         need = ctx.needs_input_grad[:3]
         if not any(need):
             return None, None, None, None
-        dri, dU, dX = _launch_bwd(ri, U, X, yb.contiguous(), ctx.perm, need)
+        if torch.is_grad_enabled():
+            grads = WApplyBwd.apply(ri, U, X, yb.contiguous(), ctx.perm)
+            return tuple(g if n else None for g, n in zip(grads, need)) + (
+                None,)
+        dri, dU, dX = _bwd(ri, U, X, yb, ctx.perm, need)
         return dri, dU, dX, None
+
+
+class WApplyBwd(torch.autograd.Function):
+    """(dri, dU, dX) = the K3 backward at (ri, U, X, Yb): one launch of the
+    backward kernel.  Its backward, given the cotangents (a, W, Cx) of
+    (dri, dU, dX), is the derivative of L = <Yb, y(ri, U, X)> along
+    (a, W, Cx) differentiated once more:
+
+        Yb: y(a, U, X) + y(ri, U, Cx) + D_U y[W]
+        X:  y*(a, U, Yb) + d<W, dU>/dX
+        ri: dri(U, Cx, Yb) + d<W, dU>/dri
+        U:  dU(a, U, X, Yb) + dU(ri, U, Cx, Yb) + d<W, dU>/dU
+
+    (y* the apply at the adjoint perm).  The three applies are K3
+    forwards; the rest is autograd of the backward's plain formulas."""
+
+    @staticmethod
+    def forward(ctx, ri, U, X, Yb, perm):
+        ctx.perm = perm
+        ctx.save_for_backward(ri, U, X, Yb)
+        return _bwd(ri, U, X, Yb, perm)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, a, W, Cx):
+        ri, U, X, Yb = ctx.saved_tensors
+        perm = ctx.perm
+        with torch.enable_grad():
+            ri_, U_, X_, Yb_ = (t.detach().requires_grad_(True)
+                                for t in (ri, U, X, Yb))
+            V = _frame(U_)
+            terms = []
+            if W is not None:
+                terms.append((W * _bwd_plain(ri_, V, X_, Yb_, perm)[1]).sum())
+            Ybc = Yb_.detach()
+            if a is not None:
+                terms.append((Ybc * w_apply_reference(
+                    a, V, X_.detach(), perm)).sum())
+            if Cx is not None:
+                terms.append((Ybc * w_apply_reference(ri_, V, Cx,
+                                                      perm)).sum())
+            d_ri, d_U, d_X, d_Yb = (
+                g if g is not None else torch.zeros_like(t)
+                for g, t in zip(torch.autograd.grad(
+                    sum(terms), (ri_, U_, X_, Yb_), allow_unused=True),
+                    (ri, U, X, Yb)))
+        if a is not None:
+            a = a.contiguous()
+            d_X = d_X + _fwd(a, U, Yb, adjoint_perm(perm))
+            d_Yb = d_Yb + _fwd(a, U, X, perm)
+        if Cx is not None:
+            d_Yb = d_Yb + _fwd(ri, U, Cx.contiguous(), perm)
+        return d_ri, d_U, d_X, d_Yb, None
 
 
 def w_apply(ri: torch.Tensor, U: torch.Tensor, X: torch.Tensor, perm):

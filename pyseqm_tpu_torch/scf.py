@@ -1,31 +1,45 @@
-"""SCF engine: converger 2 + backward mode 0.
+"""SCF engine: the three convergers and the three backward modes.
 
 PyTorch counterpart of ``pyseqm_tpu/scf.py`` (cf. the reference
 scf_loop.py:32-806), on the full (nmol, 4A, 4A) layout with the block-grid
 Fock build (``fock``) and on the static packed layout
 (``fock_packed_split``).  Each iteration's density comes from the
 eigensolver (``sym_eig``, the default) or SP2 (``use_sp2``).
-Converger 2: two direct steps, one
-adaptive-mixing step, then Pulay DIIS.  The fixed point runs as a Python
-loop over masked batched updates: converged molecules stop changing but
-keep riding the batch, and the host checks convergence once per _CHUNK
-iterations (the JAX package's default chunk, which fixes where max_iter
-can overshoot).
+
+Convergers: 0 constant mixing (``(0, alpha)``), 1 two direct steps then
+adaptive mixing, 2 two direct steps, one adaptive-mixing step, then Pulay
+DIIS.  The fixed point runs as a Python loop over masked batched updates:
+converged molecules stop changing but keep riding the batch, and the host
+checks convergence once per _CHUNK iterations (the JAX package's default
+chunk, which fixes where max_iter can overshoot).
 
 The DIIS machinery (nFock=5 ring buffer of [F,P] commutators, EMAT linear
 system, scf_loop.py:264-510) uses fixed-size buffers with a modular counter
 and a masked identity-embedded 6x6 solve.
 
-Backward mode 0 (Hellmann-Feynman): the converged density is a constant;
-energy terms still differentiate through Hcore and the integrals.
+Differentiation (``SCFConfig.backward``):
+
+- 0 (Hellmann-Feynman): the converged density is a constant; energy terms
+  still differentiate through Hcore and the integrals.
+- 1 (recursive adjoint, cf. SCF.backward, scf_loop.py:557-657): an
+  autograd.Function whose backward iterates vector-Jacobian products of
+  one Fock + eigh step at the converged density until the running
+  cotangent decays (the JAX package's custom_vjp; once differentiable).
+- 2 (unrolled): a fixed number of masked iterations recorded by autograd,
+  so reverse mode differentiates through them, twice for Hessians.
+
+Both differentiable routes solve the density with ``sym_eig``: SP2 has no
+derivative.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from .constants import Constants
 from .ops.density import sp2, static_pack_mat, sym_eig
@@ -37,6 +51,12 @@ SCF_PARAM_NAMES = ("g_ss", "g_pp", "g_sp", "g_p2", "h_sp")
 
 _NFOCK = 5
 _CHUNK = 4
+
+# adjoint iterations run by backward mode 1, and molecules whose gradients
+# it zeroed as backward failures (plain integers; reset by callers that
+# count)
+adjoint_iterations = 0
+backward_failures = 0
 
 
 class SCFConvergenceError(RuntimeError):
@@ -58,7 +78,18 @@ class SCFConfig:
     # 0 = off.  The SCF ignores it; the packed XL route raises on it.
     sp2_rescue: float = 0.0
     max_iter: int = 1000
+    backward: int = 0                   # 0 HF | 1 adjoint | 2 unrolled
+    # mode 1: stop when the converged molecules' max |cotangent| < eps;
+    # at most backward_max_iter iterations; a growing cotangent >= 1 stops
+    # it as diverged only after backward_diverge_min_iter iterations
+    backward_eps: float = 1.0e-2
+    backward_max_iter: int = 10
+    backward_diverge_min_iter: int = 5
+    backward_scan_iters: int = 100      # mode 2: iterations unrolled
+    # raise instead of warn+mask when molecules fail to converge
+    # (cf. RAISE_ERROR_IF_SCF_FORWARD/BACKWARD_FAILS, scf_loop.py:23-27)
     raise_on_forward_failure: bool = False
+    raise_on_backward_failure: bool = False
     # plain adaptive-mixing iterations run on all molecules after the
     # energy criterion fires: the |dEelec| stop is quadratically blind to
     # density error, and ~8 contraction steps bring f32 forces to the
@@ -76,7 +107,8 @@ class SCFConfig:
     pack_heavy: Optional[int] = None
     # The JAX package's sp2_precision, sp2_dots, sort_packing and panel_out
     # are TPU knobs and not ported: with TF32 off every float32 product
-    # here is full float32.
+    # here is full float32.  Its chunk (iterations per while_loop trip) is
+    # the fixed _CHUNK here.
 
 
 def init_density(const: Constants, sys: System) -> torch.Tensor:
@@ -104,7 +136,10 @@ def _adaptive_fac(Pnew, P, Pold):
     d_old = torch.diagonal(Pold, dim1=-2, dim2=-1)
     num = ((d_new - d_cur) ** 2).sum(dim=-1)
     den = ((d_new - 2.0 * d_cur + d_old) ** 2).sum(dim=-1)
-    return torch.sqrt(num / torch.where(den > 0.0, den, torch.ones_like(den)))
+    # a constant when differentiating through the loop (cf. the no_grad
+    # block in scf_loop.py:199-208)
+    return torch.sqrt(num / torch.where(den > 0.0, den, torch.ones_like(
+        den))).detach()
 
 
 @dataclasses.dataclass
@@ -124,17 +159,20 @@ class _State:
 
 
 def _make_density(sys: System, cfg: SCFConfig,
-                  packed: Optional[Tuple[int, int]]):
-    """The density solve F -> P of one SCF iteration in the run layout."""
+                  packed: Optional[Tuple[int, int]],
+                  differentiable: bool = False):
+    """The density solve F -> P of one SCF iteration in the run layout
+    (always sym_eig when the loop is differentiated)."""
+    sp2_on = cfg.use_sp2 and not differentiable
     if packed is not None:
         K = packed[0]
-        if cfg.use_sp2:
+        if sp2_on:
             return lambda F: sp2(sys, F, cfg.sp2_eps, cfg.sp2_tight_bounds,
                                  pack_heavy=K, prepacked=True)
         return lambda F: sym_eig(sys, F,
                                  check_degeneracy=cfg.check_degeneracy,
                                  pack_heavy=K, prepacked=True)[1]
-    if cfg.use_sp2:
+    if sp2_on:
         return lambda F: sp2(sys, F, cfg.sp2_eps, cfg.sp2_tight_bounds,
                              pack_n=cfg.pack_orbitals,
                              pack_heavy=cfg.pack_heavy)
@@ -156,24 +194,37 @@ def _layout_fock(sys: System, packed: Optional[Tuple[int, int]]):
             lambda M: M)
 
 
-@torch.no_grad()
 def scf_iterate(sys: System, M: torch.Tensor, w, p: Dict[str, torch.Tensor],
                 P0: torch.Tensor, cfg: SCFConfig,
-                packed: Optional[Tuple[int, int]] = None
+                packed: Optional[Tuple[int, int]] = None,
+                differentiable: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the fixed-point iteration; returns (Pconv, notconverged).
     ``packed=(K, n_st)``: the whole loop runs in the static packed layout
     (M the packed core matrix, P0/P/F/DIIS buffers (nmol, n_st, n_st));
-    otherwise on the full layout (M the block grid)."""
-    density = _make_density(sys, cfg, packed)
+    otherwise on the full layout (M the block grid).
+
+    ``differentiable=False`` iterates under no_grad until every molecule
+    converges or max_iter, then polishes; ``differentiable=True`` runs
+    exactly ``cfg.backward_scan_iters`` masked iterations recorded by
+    autograd and no polish (backward mode 2, the JAX package's
+    lax.scan)."""
+    with contextlib.nullcontext() if differentiable else torch.no_grad():
+        return _iterate(sys, M, w, p, P0, cfg, packed, differentiable)
+
+
+def _iterate(sys, M, w, p, P0, cfg, packed, differentiable):
+    density = _make_density(sys, cfg, packed, differentiable)
     fock_m, H_of = _layout_fock(sys, packed)
 
     def fock_of(P):
         return fock_m(M, w, p, P)
 
     H = H_of(M)
-    if tuple(cfg.converger) != (2,):
-        raise NotImplementedError("only converger (2,) is ported yet")
+    conv = cfg.converger[0]
+    if conv not in (0, 1, 2):
+        raise ValueError(f"unknown converger {cfg.converger}")
+    alpha = cfg.converger[1] if conv == 0 else 0.0
 
     F1 = fock_of(P0)
     E1 = _elec_energy(P0, F1, H)
@@ -212,6 +263,9 @@ def scf_iterate(sys: System, M: torch.Tensor, w, p: Dict[str, torch.Tensor],
 
     def phase_direct(st):
         return finish(st, density(st.F), st.P)
+
+    def phase_mix(st):
+        return finish(st, alpha * st.P + (1.0 - alpha) * density(st.F), st.P)
 
     def phase_adaptive(st):
         Pnew = density(st.F)
@@ -279,11 +333,18 @@ def scf_iterate(sys: System, M: torch.Tensor, w, p: Dict[str, torch.Tensor],
                                    **extra)
 
     def body(st):
+        if conv == 0:
+            return phase_mix(st)
         if st.k < 2:
             return phase_direct(st)
-        if st.k < 3:
+        if conv == 1 or st.k < 3:
             return phase_adaptive(st)
         return phase_diis_warm(st) if st.cfock < 2 else phase_diis(st)
+
+    if differentiable:
+        for _ in range(cfg.backward_scan_iters):
+            st = body(st)
+        return st.P, st.notconverged
 
     while st.k < cfg.max_iter and bool(st.notconverged.any()):
         for _ in range(_CHUNK):
@@ -304,28 +365,153 @@ def scf_iterate(sys: System, M: torch.Tensor, w, p: Dict[str, torch.Tensor],
     return st.P, st.notconverged
 
 
+def _flatten(w):
+    """(tensor leaves, rebuild) of an integrals NamedTuple that may nest
+    others (WPackSplit, WPackGridSplit); rebuild(iter(leaves)) gives it
+    back."""
+    if torch.is_tensor(w):
+        return [w], lambda it: next(it)
+    subs = [_flatten(t) for t in w]
+    return ([leaf for leaves, _ in subs for leaf in leaves],
+            lambda it: type(w)(*[rebuild(it) for _, rebuild in subs]))
+
+
+def _eig_step(sys: System, cfg: SCFConfig,
+              packed: Optional[Tuple[int, int]]):
+    """step(P, M, w, p) = sym_eig(fock_of(M, w, p, P)): the SCF map whose
+    fixed point the adjoint differentiates."""
+    fock_m, _ = _layout_fock(sys, packed)
+    if packed is not None:
+        return lambda P, M, w, p: sym_eig(sys, fock_m(M, w, p, P),
+                                          pack_heavy=packed[0],
+                                          prepacked=True)[1]
+    return lambda P, M, w, p: sym_eig(sys, fock_m(M, w, p, P),
+                                      pack_n=cfg.pack_orbitals,
+                                      pack_heavy=cfg.pack_heavy)[1]
+
+
+@dataclasses.dataclass
+class _Run:
+    """What the adjoint needs besides its tensor inputs."""
+    sys: System
+    cfg: SCFConfig
+    packed: Optional[Tuple[int, int]]
+    rebuild: object
+    nw: int
+    P0: torch.Tensor
+
+
+class _SCFAdjoint(torch.autograd.Function):
+    """(P, notconverged) = scf_iterate(...) with the recursive-adjoint VJP
+    (backward mode 1; the JAX package's custom_vjp make_scf_apply).  The
+    tensor inputs are M, the integrals' leaves and the five SCF
+    parameters, each with the molecule axis first."""
+
+    @staticmethod
+    def forward(ctx, run, M, *leaves):
+        w = run.rebuild(iter(leaves[:run.nw]))
+        pscf = dict(zip(SCF_PARAM_NAMES, leaves[run.nw:]))
+        P, nc = scf_iterate(run.sys, M, w, pscf, run.P0, run.cfg, run.packed)
+        ctx.run = run
+        ctx.save_for_backward(M, *leaves, P, nc)
+        ctx.mark_non_differentiable(nc)
+        return P, nc
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gP, _gnc):
+        global adjoint_iterations, backward_failures
+        run, cfg = ctx.run, ctx.run.cfg
+        *ins, P, nc = ctx.saved_tensors
+        need = ctx.needs_input_grad[1:]
+        none = (None,) * (1 + len(ins))
+        if gP is None or not any(need):
+            return none
+        # one Fock + eigh step at the converged density, built once: its
+        # VJP is iterated, so the eigensolver's rescue check runs once
+        with torch.enable_grad():
+            Pc = P.detach().requires_grad_(True)
+            xs = [t.detach().requires_grad_(n) for t, n in zip(ins, need)]
+            w = run.rebuild(iter(xs[1:1 + run.nw]))
+            pscf = dict(zip(SCF_PARAM_NAMES, xs[1 + run.nw:]))
+            Pout = _eig_step(run.sys, cfg, run.packed)(Pc, xs[0], w, pscf)
+        wrt = [Pc] + [x for x, n in zip(xs, need) if n]
+        acc = [torch.zeros_like(x) for x in wrt[1:]]
+        converged = ~nc
+
+        def gmax(g):
+            return g.abs().amax(dim=(1, 2))
+
+        g, last_max, k = gP, gmax(gP), 0
+        while k < cfg.backward_max_iter:
+            got = torch.autograd.grad(Pout, wrt, g, retain_graph=True,
+                                      allow_unused=True)
+            g = got[0] if got[0] is not None else torch.zeros_like(P)
+            acc = [a if t is None else a + t for a, t in zip(acc, got[1:])]
+            cur = gmax(g)
+            err = torch.where(converged, cur, torch.zeros_like(cur)).max()
+            diverged = ((cur > last_max) & (cur >= 1.0)).any()
+            last_max, k = cur, k + 1
+            if bool((err < cfg.backward_eps)
+                    | (diverged & (k >= cfg.backward_diverge_min_iter))):
+                break
+        adjoint_iterations += k
+        # zero the gradients of molecules that failed forward or backward
+        bad = nc | (last_max > cfg.backward_eps) | ~torch.isfinite(last_max)
+        failed = bad & ~nc
+        backward_failures += int(failed.sum())
+        if cfg.raise_on_backward_failure and bool(failed.any()):
+            raise SCFConvergenceError(
+                f"SCF backward failed for molecules "
+                f"{torch.nonzero(failed).flatten().tolist()}")
+        keep = ~bad
+        it = iter(a * keep.reshape((-1,) + (1,) * (a.dim() - 1)).to(a.dtype)
+                  for a in acc)
+        return (None,) + tuple(next(it) if n else None for n in need)
+
+
 def scf_solve(const: Constants, sys: System, M: torch.Tensor, w,
               p: Dict[str, torch.Tensor], cfg: SCFConfig,
               P0: Optional[torch.Tensor] = None,
               packed: Optional[Tuple[int, int]] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """SCF solve with backward mode 0 (modes 1 and 2 are not ported yet).
+    """SCF solve dispatched on ``cfg.backward`` (cf. scf_loop,
+    scf_loop.py:671).  Returns (Pconv, notconverged).
 
+    Mode 0 returns a constant density (Hellmann-Feynman forces; the inputs
+    are detached so the loop is never recorded), mode 1 attaches the
+    recursive adjoint, mode 2 (converger (0, alpha) or (1,); always from
+    the initial guess) differentiates through the unrolled iterations.
     ``packed=(K, n_st)`` runs the fixed point in the static packed layout
     (M the packed core matrix) and returns Pconv (nmol, n_st, n_st);
-    otherwise M is the block grid and Pconv (nmol, 4A, 4A).  Returns
-    (Pconv, notconverged).  The density is a constant for autograd
-    (Hellmann-Feynman forces); inputs are detached so the fixed-point loop
-    is never recorded.  P0 may be given in either layout.
+    otherwise M is the block grid and Pconv (nmol, 4A, 4A).  P0 may be
+    given in either layout and carries no gradient.
     """
-    pscf = {k: p[k].detach() for k in SCF_PARAM_NAMES}
-    if P0 is None:
+    pscf = {k: p[k] for k in SCF_PARAM_NAMES}
+    if P0 is None or cfg.backward == 2:
         P0 = init_density(const, sys)
     if packed is not None and P0.shape[-1] != packed[1]:
         P0 = static_pack_mat(P0, packed[0], packed[1])
-    w0 = type(w)(*[t.detach() if torch.is_tensor(t) else
-                   type(t)(*[u.detach() for u in t]) for t in w])
-    P, nc = scf_iterate(sys, M.detach(), w0, pscf, P0.detach(), cfg, packed)
+    P0 = P0.detach()
+    if cfg.backward == 0:
+        leaves, rebuild = _flatten(w)
+        P, nc = scf_iterate(sys, M.detach(),
+                            rebuild(iter([t.detach() for t in leaves])),
+                            {k: v.detach() for k, v in pscf.items()}, P0,
+                            cfg, packed)
+    elif cfg.backward == 1:
+        leaves, rebuild = _flatten(w)
+        run = _Run(sys, cfg, packed, rebuild, len(leaves), P0)
+        P, nc = _SCFAdjoint.apply(run, M, *leaves,
+                                  *[pscf[k] for k in SCF_PARAM_NAMES])
+    elif cfg.backward == 2:
+        if cfg.converger[0] not in (0, 1):
+            raise ValueError("backward mode 2 requires converger (0, alpha) "
+                             "or (1,)")
+        P, nc = scf_iterate(sys, M, w, pscf, P0, cfg, packed,
+                            differentiable=True)
+    else:
+        raise ValueError(f"unknown backward mode {cfg.backward}")
     if cfg.raise_on_forward_failure and bool(nc.any()):
         bad = torch.nonzero(nc).flatten().tolist()
         raise SCFConvergenceError(f"SCF forward failed for molecules {bad}")

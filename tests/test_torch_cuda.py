@@ -1,8 +1,11 @@
 """PyTorch port on an NVIDIA GPU: the CUDA SP2, Jacobi eigh and fused
 two-electron apply kernels against their plain versions (and the exact
-answers where there are any), short float32 XL-BOMD runs (SP2 and eigh
-densities) through the kernels, and the default flat layout's energy and
-force, against the CPU runs of the same inputs.
+answers where there are any), K3's second derivative against double
+backward through its plain version, short float32 XL-BOMD runs (SP2 and
+eigh densities) through the kernels, the default flat layout's and the
+class-segmented flat pair list's energy and force, the SCF adjoint's
+parameter and coordinate gradients and a water Hessian through the
+unrolled SCF, against the CPU runs of the same inputs.
 
 These tests need the card and skip without one.  They import neither JAX
 nor the JAX package, so they run where only PyTorch is installed:
@@ -270,9 +273,15 @@ def test_wapply_is_one_launch(cuda, perm, tmp_path):
         assert grown == ([2, 0] if name == "wapply_fwd" else [0, 2])
 
 
-def test_wapply_expanded_x_and_once_differentiable(cuda):
-    # the Coulomb apply of the packed Fock build: X = Pd[:, None] broadcast
-    # over the row atom; its cotangent is reduced back by autograd
+@pytest.mark.parametrize("perm", K3_PERMS)
+def test_wapply_expanded_x_and_double_backward(cuda, perm):
+    """The Coulomb apply of the packed Fock build (X = Pd[:, None]
+    broadcast over the row atom; its cotangent is reduced back by
+    autograd), then K3's second derivative: double backward through WApply
+    and WApplyBwd (the K3 backward kernel, its backward three K3 forward
+    applies) against double backward through the plain version, float64:
+    the gradients of a linear form of (dri, dU, dX) by ri, U (the 3x3
+    block), X and the output cotangent."""
     ri, U, _, Yb = _wapply_case(0, torch.float64, cuda, 3, lead=(64, 5, 5))
     Xb = _wapply_case(0, torch.float64, cuda, 4, lead=(64, 1, 5))[2]
     y, dri, dU, dX = _grads(wapply_kernel.w_apply, ri, U, Xb, Yb,
@@ -282,12 +291,129 @@ def test_wapply_expanded_x_and_once_differentiable(cuda):
     assert dX.shape == Xb.shape
     assert (y - ref[0]).abs().max() <= 1e-12 * ref[0].abs().max()
     assert (dX - ref[3]).abs().max() <= 1e-12 * ref[3].abs().max()
-    leaves = [t.detach().clone().requires_grad_(True) for t in (ri, U, Xb)]
-    out = wapply_kernel.w_apply(*leaves, (1, 3, 2, 4))
-    (g,) = torch.autograd.grad((out * Yb).sum(), leaves[0],
-                               create_graph=True)
-    with pytest.raises(RuntimeError):
-        torch.autograd.grad(g.sum(), leaves[1])
+
+    blk = torch.zeros(4, 4, dtype=torch.float64, device=cuda)
+    blk[1:, 1:] = 1.0
+    w = _wapply_case(0, torch.float64, cuda, 5, lead=(64, 5, 5))
+    v = [w[0], w[1] * blk, _wapply_case(0, torch.float64, cuda, 6,
+                                        lead=(64, 1, 5))[2]]
+
+    def second(fn):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (ri, U, Xb, Yb)]
+        g = torch.autograd.grad(fn(*leaves[:3], perm), leaves[:3],
+                                leaves[3], create_graph=True)
+        return torch.autograd.grad(sum((a * b).sum() for a, b in zip(v, g)),
+                                   leaves)
+    f0, b0 = wapply_kernel.launches_fwd, wapply_kernel.launches_bwd
+    got = second(wapply_kernel.w_apply)
+    torch.cuda.synchronize()
+    # the forward, WApplyBwd's backward kernel, and its three applies
+    assert (wapply_kernel.launches_fwd - f0,
+            wapply_kernel.launches_bwd - b0) == (4, 1)
+    ref = second(wapply_kernel.w_apply_reference)
+    for k, (a, b) in enumerate(zip(got, ref)):
+        if k == 1:
+            a, b = a[..., 1:, 1:], b[..., 1:, 1:]
+        assert (a - b).abs().max() <= 1e-12 * max(b.abs().max().item(), 1.0)
+
+
+def _learned_grads(device, dtype, cfg_kw):
+    """Energy of make_batch(12, 8) with per-atom learned U_ss and zeta_s
+    and the gradient of sum(Hf) to them and the coordinates."""
+    sp, co = make_batch(12, 8, jitter=0.02, seed=4)
+    const, tables, cfg = pt.build("AM1", dtype=dtype, device=device,
+                                  **cfg_kw)
+    species = torch.as_tensor(sp, device=device)
+    learned = {k: tables[k][species].clone().requires_grad_(True)
+               for k in ("U_ss", "zeta_s")}
+    x = torch.tensor(co, dtype=dtype, device=device, requires_grad=True)
+    out = pt.energy(const, tables, cfg, sp, x, learned=learned)
+    return [t.detach().double().cpu() for t in (out.Hf,) + torch.autograd.grad(
+        out.Hf.sum(), (learned["U_ss"], learned["zeta_s"], x))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("pack", [True, False])
+def test_adjoint_grads_on_card_match_cpu(cuda, dtype, pack):
+    """Backward mode 1 (the SCF adjoint) on the card, packed and flat:
+    Hf and its gradients to U_ss, zeta_s and R against the CPU run.
+    float64: rounding (K3 float64 against the plain apply, the same
+    torch.linalg.eigh); float32 (K2 and K3 float32 against the plain
+    versions): the f32 budgets of phase 19 of chip_smoke.py."""
+    K = pt.packed_heavy_count(make_batch(12, 8, jitter=0.02, seed=4)[0])
+    eps = 1.0e-10 if dtype == torch.float64 else 1.0e-5
+    kw = dict(scf=SCFConfig(eps=eps, converger=(2,), backward=1,
+                            pack_heavy=K if pack else None))
+    counts = (eigh_kernel.launches, wapply_kernel.launches_fwd,
+              wapply_kernel.launches_bwd)
+    got = _learned_grads(cuda, dtype, kw)
+    grown = [b - a for a, b in zip(counts, (eigh_kernel.launches,
+                                            wapply_kernel.launches_fwd,
+                                            wapply_kernel.launches_bwd))]
+    ref = _learned_grads("cpu", dtype, kw)
+    assert grown[1] > 0 and grown[2] > 0
+    assert grown[0] > 0 if dtype == torch.float32 else grown[0] == 0
+    tols = ((1e-9, 1e-9, 1e-8, 1e-8) if dtype == torch.float64
+            else (1.5e-4, 2.0e-4, 2.0e-3, 2.0e-3))
+    for a, b, tol in zip(got, ref, tols):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=tol)
+
+
+def _water_hessian(device, dtype):
+    const, tables, cfg = pt.build(
+        "AM1", dtype=dtype, device=device, scf=SCFConfig(
+            eps=1.0e-11 if dtype == torch.float64 else 1.0e-5,
+            converger=(0, 0.0), backward=2, backward_scan_iters=30))
+    c = torch.tensor([[[0.0, 0.0, 0.0], [0.96, 0.07, 0.02],
+                       [-0.22, 0.93, -0.05]]], dtype=dtype, device=device,
+                     requires_grad=True)
+    out = pt.energy(const, tables, cfg, np.array([[8, 1, 1]]), c)
+    (g,) = torch.autograd.grad(out.Hf.sum(), c, create_graph=True)
+    g = g.reshape(-1)
+    return torch.stack([torch.autograd.grad(g[k], c, retain_graph=True)[0]
+                        .reshape(-1) for k in range(9)]).double().cpu()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_water_hessian_on_card_matches_cpu(cuda, dtype):
+    """The 9x9 water Hessian of tests/test_second_order.py through the
+    unrolled SCF on the card (K3 and its second derivative; at float32 K2
+    and the double-float overlap's second derivative) against the CPU
+    run: float64 rounding, float32 the f32 Hessian budget of
+    tests/test_torch_second_order.py (1e-4 of max |H|)."""
+    f0, b0 = wapply_kernel.launches_fwd, wapply_kernel.launches_bwd
+    H = _water_hessian(cuda, dtype)
+    assert wapply_kernel.launches_fwd > f0 and wapply_kernel.launches_bwd > b0
+    ref = _water_hessian("cpu", dtype)
+    scale = ref.abs().max().item()
+    tol = 1e-10 if dtype == torch.float64 else 1e-4
+    assert (H - ref).abs().max().item() <= tol * scale
+    if dtype == torch.float64:
+        assert (H - H.T).abs().max().item() <= 1e-8 * scale
+
+
+def test_flat_split_on_card_matches_cpu(cuda):
+    """The class-segmented flat pair list (pack_pairs, dense_pair_grid
+    False: K3 on the XX slice) on the card against the CPU run, float32:
+    the f32 budget of the f32-vs-f64 tests (1.5e-4 eV, 1e-3 eV/A)."""
+    sp, co = make_batch(12, 8, jitter=0.02, seed=4)
+    K = pt.packed_heavy_count(sp)
+    out = {}
+    for dev in ("cpu", cuda):
+        const, tables, cfg = pt.build(
+            "AM1", dtype=torch.float32, device=dev, pack_pairs=True,
+            dense_pair_grid=False,
+            scf=SCFConfig(eps=1.0e-5, converger=(2,), pack_heavy=K))
+        f0 = wapply_kernel.launches_fwd
+        f, o = pt.force(const, tables, cfg, sp,
+                        torch.tensor(co, dtype=torch.float32, device=dev))
+        assert type(o.w).__name__ == "WPackSplit"
+        out[str(dev)] = (f.cpu(), o.Hf.cpu(), wapply_kernel.launches_fwd - f0)
+    (fc, hc, lc), (fg, hg, lg) = out["cpu"], out["cuda"]
+    assert lc == 0 and lg > 0
+    np.testing.assert_allclose(hg.numpy(), hc.numpy(), rtol=0, atol=1.5e-4)
+    np.testing.assert_allclose(fg.numpy(), fc.numpy(), rtol=0, atol=1e-3)
 
 
 def test_default_layout_on_card_matches_cpu(cuda):

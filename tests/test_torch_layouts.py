@@ -371,7 +371,10 @@ def test_unported_and_dropped_options_raise():
     # the packed XL route cannot apply the rescue: raise, not drop it
     with pytest.raises(ValueError, match="sp2_rescue"):
         force_xl(const, tables, cfg, sp, torch.tensor(co), P, packed_io=True)
-    # the class-segmented flat pair list is not ported
-    cfg = dataclasses.replace(cfg, pack_pairs=True, dense_pair_grid=False)
-    with pytest.raises(NotImplementedError, match="M14"):
-        pt.energy(const, tables, cfg, sp, torch.tensor(co))
+    # the learned Kbeta hook (ROADMAP M18) is not ported: raise, not
+    # ignore it
+    kb = torch.ones((2, sp.shape[1] * (sp.shape[1] - 1) // 2, 4),
+                    dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="Kbeta"):
+        pt.energy(const, tables, cfg, sp, torch.tensor(co),
+                  learned={"Kbeta": kb})
