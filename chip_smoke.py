@@ -91,6 +91,32 @@ line is printed):
     against the packed dense grid on 256 molecules at float64;
 22. the three SCF convergers on 256 headline molecules at float64 reach
     one Hf;
+24. bomd (`bench.py --config bomd`): Langevin NVT (dt 0.4 fs, damp 20 fs,
+    300 K) at full width, the SCF from the last density every step (SP2,
+    eps 1e-4, packed): steps/s, SCF iterations and K1/K3 launches per step,
+    and the random force of one step over its per-atom scale, mean 0 and
+    variance 1 within 1% over every real component;
+25. nvt: Langevin (damp 10 fs, dt 0.5) and Nose-Hoover (tau 10 fs, dt 0.4)
+    at 300 K on the headline batch, 5 damping times of equilibration (the
+    Nose-Hoover run starts from the Langevin run's end), then the ensemble
+    mean T within 15 K of 300 K and its per-molecule spread, Nose-Hoover's
+    over one period of its chain's oscillation;
+26. opt and opt-conv (`bench.py --config opt`, `opt-conv`): the warm
+    batched L-BFGS (chunk 10, force_tol 1e-3) on 2,048 molecules (jitter
+    0.05): molecule-iterations/s over the first 60 iterations, converged
+    molecules/s at every molecule done or 400 iterations, molecules
+    converged and frozen by forced accepts; no molecule's Hf rises;
+27. opt-sd (`bench.py --config opt-sd`): chunked steepest descent, 60
+    force evaluations on the opt batch: molecule-evaluations/s;
+28. scf-row3 (`bench.py --config scf-row3`): the headline batch with 25%
+    H2S and CH3SH, AM1 f32 with row3, SP2 at eps 1e-5, packed:
+    molecules/s over 3 chained energy calls, float32 against float64 on
+    256 molecules, and the launches of one row-3 Hcore build beside a
+    row-1/2 one;
+29. the row-3 pin at float64 on the card: PM3 H2S at Stewart's published
+    geometry (Hf -0.913 kcal/mol, a stationary point), and the warm L-BFGS
+    from 1.42 A / 99 deg to it (1.2903 A, 93.51 deg); MNDO and AM1 into
+    tests/test_row3.py's windows;
 23. a JSON line of every kernel with its launches, error and times against
     its bound; then the card; the elapsed time; then the result line.
 
@@ -193,6 +219,18 @@ TOL_HESS_F32_P99, TOL_HESS_F32_MAX = 5.0e-3, 0.1
 # the split flat pair list against the packed dense grid at float64 (eV,
 # eV/A), and the three convergers' common Hf (tests/test_aux.py)
 TOL_SPLIT_HF, TOL_SPLIT_F, TOL_CONV = 1.0e-8, 1.0e-7, 1.0e-8
+# bomd (phase 24): steps after a warm-up; nvt (25): molecules and sampled
+# steps after 5 damping times; opt and opt-sd (26, 27): molecules (the
+# bench's opt batch).  Bounds: the nvt ensemble mean T against 300 K, and
+# the largest rise of a molecule's Hf over the L-BFGS run at float32
+BOMD_WARMUP, BOMD_STEPS = 2, 8
+# Nose-Hoover samples one period of its chain's oscillation, 2 pi tau /
+# sqrt(2) = 44.4 fs at tau 10 fs (111 steps of 0.4 fs): every molecule's
+# chain starts at rest, so the ensemble mean T swings by ~25 K at that
+# period (phase 25's docstring)
+NVT_NMOL, NVT_SAMPLE, NH_SAMPLE = NMOL, 40, 111
+OPT_NMOL = 2048
+TOL_NVT_T, TOL_OPT_RISE = 15.0, 1.0e-5
 
 
 class PhaseError(RuntimeError):
@@ -1901,6 +1939,422 @@ def phase_convergers():
     return d
 
 
+def kernel_counts():
+    """(K1, K2, K3 forward, K3 backward) launch counters."""
+    from pyseqm_tpu_torch.ops import eigh_kernel, sp2_kernel
+    return (sp2_kernel.launches, eigh_kernel.launches) + k3_counts()
+
+
+def kernels_reset():
+    from pyseqm_tpu_torch.ops import sp2_kernel
+    sp2_kernel.launches = 0
+    k2_reset()
+    k3_reset()
+
+
+def bomd_setup(nmol, dtype, names=None, jitter=0.02, eps=1.0e-4,
+               row3=False, strict=True, sp2_eps=1.0e-4):
+    """``bench.py --config bomd``'s batch and configuration (also opt's,
+    with jitter 0.05, and scf-row3's, with the row-3 names and eps 1e-5):
+    AM1, SP2 at sp2_eps 1e-4 (float64 references: 1e-7, as phase 7) on
+    the static packed layout.  ``strict``: an
+    unconverged SCF raises (the optimizers' trial steps may not converge
+    and are rejected by the line search instead)."""
+    import pyseqm_tpu_torch as pt
+    from pyseqm_tpu_torch.scf import SCFConfig
+    from pyseqm_tpu_torch.utils.molecules import make_batch
+    sp, co = make_batch(nmol, MOLSIZE, jitter=jitter, names=names)
+    const, tables, cfg = pt.build(
+        "AM1", dtype=dtype, device=DEV, row3=row3,
+        scf=SCFConfig(eps=eps, converger=(2,), use_sp2=True, sp2_eps=sp2_eps,
+                      max_iter=200, pack_heavy=pt.packed_heavy_count(sp),
+                      raise_on_forward_failure=strict))
+    species = torch.tensor(sp, dtype=torch.long, device=DEV)
+    coords = torch.tensor(co.astype(np.float32), dtype=dtype, device=DEV)
+    return const, tables, cfg, species, coords
+
+
+def langevin_noise(md, species, state):
+    """The random force of one Langevin step at ``state`` divided by its
+    per-atom scale, on the real atoms: the force with the step's draw less
+    the force with a zero draw.  Also returns the draw itself."""
+    from pyseqm_tpu_torch.drivers.md import FR_SCALE, atom_masses
+    draws = []
+    orig = md.random_normal
+
+    def keep(st, shape):
+        draws.append(orig(st, shape))
+        return draws[-1]
+    with patched(md, "random_normal", keep):
+        F, _, _ = md.compute_force(species, state)
+    with patched(md, "random_normal",
+                 lambda st, shape: torch.zeros_like(draws[0])):
+        F0, _, _ = md.compute_force(species, state)
+    cfg = md.md_cfg
+    scale = FR_SCALE * torch.sqrt(2.0 * cfg.temperature
+                                  * atom_masses(md.const, species)
+                                  / cfg.timestep / cfg.damp)
+    real = (species > 0)[..., None].expand_as(F)
+    return ((F - F0) / scale)[real].double(), draws[0][real].double()
+
+
+def phase_bomd(card):
+    """``bench.py --config bomd``: Langevin NVT at full width, one SCF (K1
+    in every iteration, K3 in every Fock) and one force backward (K3) per
+    step; steps/s over BOMD_STEPS timed steps after BOMD_WARMUP."""
+    from pyseqm_tpu_torch.drivers.md import LangevinDynamics, MDConfig
+    const, tables, cfg, species, coords = bomd_setup(NMOL, torch.float32)
+    md = LangevinDynamics(const, tables, cfg,
+                          MDConfig(timestep=0.4, damp=20.0,
+                                   temperature=300.0),
+                          generator=torch.Generator(DEV).manual_seed(0))
+    state = md.initialize(species, coords, Temp=300.0)
+    for _ in range(BOMD_WARMUP):
+        state, obs = md.step(species, state)
+    sync()
+    kernels_reset()
+    t0 = time.perf_counter()
+    for _ in range(BOMD_STEPS):
+        state, obs = md.step(species, state)
+    sync()
+    dt = time.perf_counter() - t0
+    n = kernel_counts()
+    k1, k3 = n[0] / BOMD_STEPS, [c / BOMD_STEPS for c in n[2:]]
+    polish = 8                           # SCFConfig.polish_iters auto, f32
+    finite = bool(torch.isfinite(state.coordinates).all()
+                  and torch.isfinite(state.velocities).all()
+                  and torch.isfinite(obs.Epot).all())
+    z, draw = langevin_noise(md, species, state)
+    mean, var = z.mean().item(), z.var().item()
+    dz = (z - draw).abs().max().item()
+    sps = BOMD_STEPS / dt
+    print(f"[24 bomd] {NMOL} x {MOLSIZE} AM1 f32 Langevin dt 0.4 damp 20 "
+          f"300 K, SCF eps 1e-4 SP2 packed: {sps:.3f} steps/s "
+          f"({1e3 * dt / BOMD_STEPS:.1f} ms/step) on {card} | SCF "
+          f"iterations per step {k1 - polish:g} + {polish} polish | K1 "
+          f"launches per step {k1:g} | K3 per step fwd {k3[0]:g} bwd "
+          f"{k3[1]:g} | notconverged 0 (raise_on_forward_failure) | finite "
+          f"{finite} | mean T {obs.T.mean().item():.1f} K", flush=True)
+    print(f"[24 bomd random force / scale] {z.numel()} real components: "
+          f"mean {mean:.2e} variance {var:.4f} | against the draw max "
+          f"{dz:.1e}", flush=True)
+    check(finite, "bomd: non-finite state")
+    check(n[0] > 0 and n[2] > 0 and n[3] > 0, f"bomd launches {n}")
+    check(abs(mean) <= 0.01 and abs(var - 1.0) <= 0.01,
+          f"bomd random force: mean {mean}, variance {var}")
+    return {"steps_per_s": sps, "ms_per_step": 1e3 * dt / BOMD_STEPS,
+            "scf_iterations_per_step": k1 - polish,
+            "k1_launches": n[0], "k1_per_step": k1, "k3_launches": n[2:],
+            "k3_per_step": k3, "noise_mean": mean, "noise_var": var,
+            "noise_components": z.numel()}
+
+
+def nvt_run(card, md, species, coords, velocities, gen, equil, sample, tag):
+    """Equilibrate ``equil`` steps (from Maxwell-Boltzmann velocities at
+    300 K unless ``velocities`` are given), then the ensemble mean T over
+    ``sample`` steps and its per-molecule spread; returns the result and
+    the final state."""
+    state = md.initialize(species, coords, velocities, generator=gen,
+                          Temp=300.0)
+    sync()
+    kernels_reset()
+    t0 = time.perf_counter()
+    Ts = []
+    for i in range(equil + sample):
+        state, obs = md.step(species, state)
+        if i >= equil:
+            Ts.append(obs.T)
+    sync()
+    dt = time.perf_counter() - t0
+    n = kernel_counts()
+    T = torch.stack(Ts).double()
+    mean = T.mean().item()
+    per_mol = T.mean(dim=0)
+    q = torch.quantile(per_mol, torch.tensor([0.05, 0.5, 0.95],
+                                             dtype=T.dtype, device=T.device))
+    finite = bool(torch.isfinite(state.coordinates).all()
+                  and torch.isfinite(T).all())
+    print(f"[25 nvt {tag}] {species.shape[0]} molecules, {equil} steps "
+          f"then {sample} sampled: ensemble mean T {mean:.2f} K | "
+          f"per-molecule mean T p5 / p50 / p95 "
+          f"{' / '.join(f'{v:.1f}' for v in q.tolist())} K | "
+          f"{(equil + sample) / dt:.3f} steps/s on {card} | K1 {n[0]} K3 "
+          f"fwd {n[2]} bwd {n[3]} | finite {finite}", flush=True)
+    check(finite, f"nvt {tag}: non-finite state")
+    check(abs(mean - 300.0) <= TOL_NVT_T, f"nvt {tag}: mean T {mean} K")
+    check(n[0] > 0 and n[2] > 0 and n[3] > 0, f"nvt {tag} launches {n}")
+    return {"mean_T": mean, "per_molecule_T_p5_p50_p95": q.tolist(),
+            "steps_per_s": (equil + sample) / dt, "k1_launches": n[0],
+            "k3_launches": n[2:]}, state
+
+
+def phase_nvt(card):
+    """Langevin (damp 10 fs, dt 0.5) and Nose-Hoover (tau 10 fs, dt 0.4)
+    at 300 K on NVT_NMOL headline molecules, the bomd SCF: 5 damping
+    times (5 tau) of equilibration, then the ensemble mean T
+    (tests/test_md.py::test_langevin_and_thermostats and
+    tests/test_aux.py::test_nose_hoover_nvt at full width).  Langevin
+    starts from Maxwell-Boltzmann velocities at the optimized geometries;
+    Nose-Hoover from the end of the Langevin run, an ensemble at 300 K,
+    and samples one period of its chains' oscillation.  Every chain
+    starts at rest, so the chains of all molecules move in phase and the
+    ensemble mean T swings at the chain's period, 2 pi tau / sqrt(2):
+    started cold it read 261.5 K over steps 126-165 (a card run), and
+    from the Langevin ensemble still +-25 K over 40-step windows (a CPU
+    run of 256 molecules), 285.4 K over steps 126-165 (a card run)."""
+    from pyseqm_tpu_torch.drivers.md import (LangevinDynamics, MDConfig,
+                                             NoseHooverDynamics)
+    const, tables, cfg, species, coords = bomd_setup(NVT_NMOL, torch.float32)
+    lang = LangevinDynamics(const, tables, cfg,
+                            MDConfig(timestep=0.5, damp=10.0,
+                                     temperature=300.0))
+    nh = NoseHooverDynamics(const, tables, cfg,
+                            MDConfig(timestep=0.4, temperature=300.0),
+                            tau=10.0)
+    out, st = nvt_run(card, lang, species, coords, None,
+                      torch.Generator(DEV).manual_seed(1), 100, NVT_SAMPLE,
+                      "langevin")
+    out_nh, _ = nvt_run(card, nh, species, st.coordinates, st.velocities,
+                        None, 125, NH_SAMPLE, "nose-hoover")
+    return {"langevin": out, "nose_hoover": out_nh}
+
+
+def phase_opt(card):
+    """``bench.py --config opt`` and ``opt-conv`` in one run: the warm
+    batched L-BFGS (chunk 10, force_tol 1e-3) on OPT_NMOL molecules
+    (jitter 0.05): molecule-iterations/s over the first 60 iterations,
+    then on to every molecule done or 400 iterations, converged
+    molecules/s; no molecule's Hf rises."""
+    from pyseqm_tpu_torch.drivers.opt import make_lbfgs_warm
+    const, tables, cfg, species, coords = bomd_setup(OPT_NMOL, torch.float32,
+                                                     jitter=0.05,
+                                                     strict=False)
+    import pyseqm_tpu_torch as pt
+    E0 = pt.energy(const, tables, cfg, species, coords).Hf
+    init, run = make_lbfgs_warm(const, tables, cfg, species, chunk=10,
+                                force_tol=1.0e-3)
+    state = init(coords)
+    sync()
+    kernels_reset()
+    t0 = time.perf_counter()
+    t60 = None
+    while state.nit < 400 and not bool(state.done.all()):
+        state, _, _ = run(state)
+        if t60 is None and state.nit >= 60:
+            sync()
+            t60, nit60 = time.perf_counter() - t0, state.nit
+    sync()
+    dt = time.perf_counter() - t0
+    n = kernel_counts()
+    if t60 is None:
+        t60, nit60 = dt, state.nit
+    gerr = state.g.abs().amax(dim=-1)
+    ncv = int((gerr <= 1.0e-3).sum())
+    frozen = int(state.done.sum()) - ncv
+    rise = (state.E - E0).max().item()
+    finite = bool(torch.isfinite(state.x).all() and torch.isfinite(state.E)
+                  .all())
+    mips = OPT_NMOL * nit60 / t60
+    print(f"[26 opt] {OPT_NMOL} x {MOLSIZE} AM1 f32 warm L-BFGS chunk 10 "
+          f"force_tol 1e-3: {mips:.1f} molecule-iterations/s over the first "
+          f"{nit60} iterations ({t60:.2f} s) on {card}", flush=True)
+    print(f"[26 opt-conv] {state.nit} iterations in {dt:.2f} s: "
+          f"{ncv} converged to max|g| <= 1e-3 ({ncv / dt:.1f} converged "
+          f"molecules/s), {frozen} frozen by forced accepts, "
+          f"{OPT_NMOL - ncv - frozen} still running | largest Hf rise "
+          f"{rise:.2e} eV | K1 {n[0]} K3 fwd {n[2]} bwd {n[3]} | finite "
+          f"{finite}", flush=True)
+    check(finite, "opt: non-finite state")
+    check(rise <= TOL_OPT_RISE, f"opt: an Hf rose by {rise} eV")
+    check(n[0] > 0 and n[2] > 0 and n[3] > 0, f"opt launches {n}")
+    return {"molecule_iterations_per_s": mips, "iterations_timed": nit60,
+            "converged_molecules_per_s": ncv / dt, "iterations": state.nit,
+            "converged": ncv, "frozen_forced": frozen, "s": dt,
+            "largest_hf_rise": rise, "k1_launches": n[0],
+            "k3_launches": n[2:]}
+
+
+def phase_opt_sd(card):
+    """``bench.py --config opt-sd``: chunked steepest descent (chunk 20,
+    alpha 0.004, force_tol 0), 60 force evaluations on the opt batch."""
+    from pyseqm_tpu_torch.drivers.opt import geometry_optimize_sd
+    const, tables, cfg, species, coords = bomd_setup(OPT_NMOL, torch.float32,
+                                                     jitter=0.05,
+                                                     strict=False)
+    sync()
+    kernels_reset()
+    t0 = time.perf_counter()
+    x, ferr, dE = geometry_optimize_sd(const, tables, cfg, species, coords,
+                                       alpha=0.004, force_tol=0.0,
+                                       max_evl=60, chunk=20)
+    sync()
+    dt = time.perf_counter() - t0
+    n = kernel_counts()
+    mes = OPT_NMOL * 60 / dt
+    finite = bool(torch.isfinite(x).all())
+    print(f"[27 opt-sd] {OPT_NMOL} x {MOLSIZE} AM1 f32 SD chunk 20, 60 "
+          f"evaluations: {mes:.1f} molecule-evaluations/s ({dt:.2f} s) on "
+          f"{card} | final max|F| {float(ferr):.3e} eV/A, mean dE "
+          f"{float(dE):.2e} eV | K1 {n[0]} K3 fwd {n[2]} bwd {n[3]} | finite "
+          f"{finite}", flush=True)
+    check(finite, "opt-sd: non-finite geometry")
+    check(n[0] > 0 and n[2] > 0 and n[3] > 0, f"opt-sd launches {n}")
+    return {"molecule_evaluations_per_s": mes, "s": dt,
+            "final_max_force": float(ferr), "k1_launches": n[0],
+            "k3_launches": n[2:]}
+
+
+def hcore_launches(const, tables, cfg, species, coords):
+    """Kernel launches of one Hcore build (the integral stack's forward)
+    under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from pyseqm_tpu_torch.models.energy import (_atom_parameters,
+                                                _integral_stack,
+                                                _packed_layout,
+                                                _resolve_pair_layout,
+                                                check_species)
+    from pyseqm_tpu_torch.system import make_system
+    sp = check_species(cfg, tables, species)
+    A = species.shape[1]
+    _, K = _resolve_pair_layout(cfg, A)
+    n_st = _packed_layout(cfg, A)[1]
+    for _ in range(2):          # the first profile pays the tracer start-up
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof, \
+                torch.no_grad():
+            s = make_system(const, species, coords, None,
+                            cfg.pair_outer_cutoff, heavy_count=K,
+                            species_host=sp)
+            p = _atom_parameters(tables, cfg.method, s, None, coords)
+            _integral_stack(const, s, p, cfg, packed_m=n_st)
+            sync()
+    return sum(e.count for e in prof.key_averages()
+               if e.key.startswith("cudaLaunch"))
+
+
+def phase_scf_row3(card):
+    """``bench.py --config scf-row3``: the headline batch with 25% H2S and
+    CH3SH (ROW3_NAMES), AM1 f32 with row3, SP2 at eps 1e-5, packed;
+    molecules/s over 3 chained energy calls, float32 against float64 on
+    the first 256 molecules, and the launches of one row-3 Hcore build
+    beside a row-1/2 one."""
+    import pyseqm_tpu_torch as pt
+    from pyseqm_tpu_torch.utils.molecules import ROW3_NAMES
+    setup = bomd_setup(NMOL, torch.float32, names=ROW3_NAMES, eps=1.0e-5,
+                       row3=True)
+    nsulfur = int((setup[3] == 16).any(dim=1).sum())
+
+    def chained(const, tables, cfg, species, coords):
+        out = pt.energy(const, tables, cfg, species, coords)     # warm-up
+        sync()
+        kernels_reset()
+        nc, c = 0, coords
+        t0 = time.perf_counter()
+        for _ in range(SCF_REPEATS):
+            out = pt.energy(const, tables, cfg, species, c)
+            c = c + 1.0e-7 * out.Hf[:, None, None]
+            nc += int(out.notconverged.sum().item())
+        sync()
+        dt = time.perf_counter() - t0
+        check(bool(torch.isfinite(out.Hf).all()), "non-finite scf Hf")
+        return SCF_REPEATS * NMOL / dt, dt, nc, kernel_counts()
+
+    # the same SCF on the row-1/2 headline batch, for comparison
+    head = bomd_setup(NMOL, torch.float32, eps=1.0e-5)
+    mps_row12 = chained(*head)[0]
+    mps, dt, nc, n = chained(*setup)
+    ln_row3 = hcore_launches(*setup)
+    ln_row12 = hcore_launches(*head)
+    print(f"[28 scf-row3] {NMOL} x {MOLSIZE} AM1 f32 row3 ({nsulfur} "
+          f"molecules with S), SP2 eps 1e-5 packed: {mps:.1f} molecules/s "
+          f"({dt / SCF_REPEATS:.3f} s per call) on {card} | the row-1/2 "
+          f"headline batch {mps_row12:.1f} | notconverged {nc} | K1 {n[0]} "
+          f"K3 fwd {n[2]} | launches of one Hcore build: row 3 {ln_row3}, "
+          f"row 1-2 {ln_row12}", flush=True)
+    check(nc == 0, f"{nc} scf-row3 molecules not converged")
+    check(n[0] > 0 and n[2] > 0, f"scf-row3 launches {n}")
+
+    m = 256
+    res = {}
+    for dtype, eps, sp2_eps in ((torch.float32, 1.0e-5, 1.0e-4),
+                                (torch.float64, 1.0e-10, 1.0e-7)):
+        c_, t_, cfg_, sp_, co_ = bomd_setup(m, dtype, names=ROW3_NAMES,
+                                            eps=eps, row3=True,
+                                            sp2_eps=sp2_eps)
+        f, o = pt.force(c_, t_, cfg_, sp_, co_)
+        res[dtype] = (o.Hf.double(), f.double())
+    dh = (res[torch.float32][0] - res[torch.float64][0]).abs().max().item()
+    df = (res[torch.float32][1] - res[torch.float64][1]).abs().max().item()
+    print(f"[28 scf-row3 f32 vs f64, {m} molecules] |dHf| {dh:.2e} eV | "
+          f"|dF| {df:.2e} eV/A", flush=True)
+    check(dh <= TOL_HF and df <= TOL_F, f"scf-row3 f32: |dHf| {dh}, |dF| "
+          f"{df}")
+    return {"molecules_per_s": mps, "s_per_call": dt / SCF_REPEATS,
+            "row12_molecules_per_s": mps_row12,
+            "k1_launches": n[0], "k3_launches": n[2:],
+            "hcore_launches_row3": ln_row3,
+            "hcore_launches_row12": ln_row12, "f32_vs_f64_dHf": dh,
+            "f32_vs_f64_dF": df}
+
+
+def h2s(bond, angle_deg):
+    ang = np.deg2rad(angle_deg)
+    co = np.zeros((1, 4, 3))
+    co[0, 1] = [bond, 0.0, 0.0]
+    co[0, 2] = [bond * np.cos(ang), bond * np.sin(ang), 0.0]
+    return (torch.tensor([[16, 1, 1, 0]], device=DEV),
+            torch.tensor(co, dtype=torch.float64, device=DEV))
+
+
+def phase_row3_pin(card):
+    """Stewart's published PM3 H2S at float64 on the card: Hf at the
+    published geometry, then the warm L-BFGS from (1.42 A, 99 deg) to the
+    published geometry; MNDO and AM1 into tests/test_row3.py's windows."""
+    import pyseqm_tpu_torch as pt
+    from pyseqm_tpu_torch.drivers.opt import geometry_optimize_lbfgs
+    from pyseqm_tpu_torch.scf import SCFConfig
+    kernels_reset()
+    out = {}
+    for method in ("PM3", "MNDO", "AM1"):
+        const, tables, cfg = pt.build(
+            method, dtype=torch.float64, device=DEV, row3=True,
+            scf=SCFConfig(eps=1.0e-10, converger=(2,)))
+        if method == "PM3":
+            f, o = pt.force(const, tables, cfg, *h2s(1.2903, 93.51))
+            out["hf_kcal"] = float(o.Hf[0]) * 23.060907
+            out["max_force"] = float(f.abs().max())
+        x, ferr, nit = geometry_optimize_lbfgs(
+            const, tables, cfg, *h2s(1.42, 99.0), force_tol=2.0e-4,
+            max_evl=120, chunk=10)
+        x = x[0].double().cpu().numpy()
+        r = [float(np.linalg.norm(x[k] - x[0])) for k in (1, 2)]
+        ang = float(np.rad2deg(np.arccos(np.dot(x[1] - x[0], x[2] - x[0])
+                                         / (r[0] * r[1]))))
+        out[method] = {"r": r, "angle": ang, "iterations": nit,
+                       "max_grad": float(ferr)}
+    n = kernel_counts()
+    pm3 = out["PM3"]
+    print(f"[29 row3 pin, f64] PM3 H2S at 1.2903 A / 93.51 deg: Hf "
+          f"{out['hf_kcal']:.4f} kcal/mol (published -0.913), max|F| "
+          f"{out['max_force']:.1e} | L-BFGS from 1.42 A / 99 deg: "
+          + " | ".join(f"{m} r {v['r'][0]:.4f} {v['r'][1]:.4f} A angle "
+                       f"{v['angle']:.2f} deg ({v['iterations']} iterations)"
+                       for m, v in out.items() if isinstance(v, dict))
+          + f" | K3 fwd {n[2]} bwd {n[3]}", flush=True)
+    check(abs(out["hf_kcal"] + 0.913) < 0.05 and out["max_force"] < 5.0e-3,
+          f"PM3 H2S at the published geometry: {out['hf_kcal']} kcal/mol, "
+          f"max|F| {out['max_force']}")
+    check(all(abs(v - 1.2903) < 2.0e-3 for v in pm3["r"])
+          and abs(pm3["angle"] - 93.51) < 0.2, f"PM3 H2S optimum {pm3}")
+    for m in ("MNDO", "AM1"):
+        v = out[m]
+        check(all(1.28 < r < 1.40 for r in v["r"])
+              and 89.0 < v["angle"] < 100.0, f"{m} H2S optimum {v}")
+    check(n[2] > 0 and n[3] > 0, f"row3 pin launches {n}")
+    out["k3_launches"] = n[2:]
+    return out
+
+
 def k3_timing(ri, U, X, perm, tag, flush):
     """K3 on one path's own operands (the exchange apply of its Fock
     build): each kernel launch alone (median of 20, device time), with its
@@ -2086,6 +2540,31 @@ def main():
     with Phase("22 convergers"):
         convergers = phase_convergers()
     torch.cuda.empty_cache()
+    with Phase("24 bomd"):
+        bomd = phase_bomd(card)
+    torch.cuda.empty_cache()
+    with Phase("25 nvt"):
+        nvt = phase_nvt(card)
+    torch.cuda.empty_cache()
+    with Phase("26 opt"):
+        opt = phase_opt(card)
+    torch.cuda.empty_cache()
+    with Phase("27 opt-sd"):
+        opt_sd = phase_opt_sd(card)
+    torch.cuda.empty_cache()
+    with Phase("28 scf-row3"):
+        row3 = phase_scf_row3(card)
+    torch.cuda.empty_cache()
+    with Phase("29 row3 pin"):
+        pin = phase_row3_pin(card)
+    torch.cuda.empty_cache()
+    k1_paths = {"xlbomd_sp2": launches, "bomd": bomd["k1_launches"],
+                "nvt_langevin": nvt["langevin"]["k1_launches"],
+                "nvt_nose_hoover": nvt["nose_hoover"]["k1_launches"],
+                "opt": opt["k1_launches"], "opt_sd": opt_sd["k1_launches"],
+                "scf_row3": row3["k1_launches"]}
+    for path, n in k1_paths.items():
+        check(n > 0, f"K1 was not launched on the {path} path")
     by_path.update(scf_adjoint=adj["k2_launches"],
                    scf_adjoint_flat=adj_flat["k2_launches"],
                    hessian=hess["k2_launches"])
@@ -2100,12 +2579,19 @@ def main():
                 "scf_adjoint": adj["k3_launches"],
                 "scf_adjoint_flat": adj_flat["k3_launches"],
                 "hessian": hess["k3_launches"],
-                "flat_split": split["k3_launches"]}
+                "flat_split": split["k3_launches"],
+                "bomd": bomd["k3_launches"],
+                "nvt_langevin": nvt["langevin"]["k3_launches"],
+                "nvt_nose_hoover": nvt["nose_hoover"]["k3_launches"],
+                "opt": opt["k3_launches"], "opt_sd": opt_sd["k3_launches"],
+                "scf_row3": row3["k3_launches"],
+                "row3_pin": pin["k3_launches"]}
     for path, (nf, nb) in k3_paths.items():
         check(nf > 0, f"K3 forward was not launched on the {path} path")
     for path in ("xlbomd_sp2", "eig_true", "xlbomd_eigh", "nanostar_packed",
                  "nanostar_dense", "scf_adjoint", "scf_adjoint_flat",
-                 "hessian"):
+                 "hessian", "bomd", "nvt_langevin", "nvt_nose_hoover", "opt",
+                 "opt_sd", "row3_pin"):
         check(k3_paths[path][1] > 0, f"K3 backward was not launched on the "
               f"{path} path")
     xch = (1, 3, 2, 4)
@@ -2135,7 +2621,8 @@ def main():
           "phases": ["8 parity", "9 scf-eigh", "10 eig=True",
                      "11 xlbomd-eigh", "12 timing", "14 flat default",
                      "19 scf-adjoint", "20 hessian"]}
-    k1["launches_by_path"] = {"xlbomd_sp2": launches}
+    k1["launches"] = sum(k1_paths.values())
+    k1["launches_by_path"] = k1_paths
     k1["ptxas"] = ptxas["sp2"]
     k3f = k3_entry("wapply_fwd", "fwd", "tools/wapply_pallas.py:181",
                    {p: n[0] for p, n in k3_paths.items()}, k3_t, worst3,
@@ -2161,7 +2648,9 @@ def main():
                       "nanostar_packed": nano_pk,
                       "nanostar_dense": nano_dn, "scf_adjoint": adj,
                       "scf_adjoint_flat": adj_flat, "hessian": hess,
-                      "flat_split": split, "convergers": convergers}),
+                      "flat_split": split, "convergers": convergers,
+                      "bomd": bomd, "nvt": nvt, "opt": opt, "opt_sd": opt_sd,
+                      "scf_row3": row3, "row3_pin": pin}),
           flush=True)
     print(json.dumps({"kernels": [k1, k2, k3f, k3b]}), flush=True)
     print(card_line(), flush=True)

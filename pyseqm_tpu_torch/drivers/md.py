@@ -1,9 +1,10 @@
-"""Born-Oppenheimer molecular dynamics: the NVE base driver.
+"""Born-Oppenheimer molecular dynamics: NVE and the NVT thermostats.
 
-PyTorch counterpart of the base of ``pyseqm_tpu/drivers/md.py`` (cf. the
-reference seqm/MolecularDynamics.py:158-432): velocity Verlet around an SCF
-force call, the velocity-rescale and energy-shift thermostats, observables,
-and a ``run`` loop with thermo lines between chunks of steps.
+PyTorch counterpart of ``pyseqm_tpu/drivers/md.py`` (cf. the reference
+seqm/MolecularDynamics.py:158-432): velocity Verlet around an SCF force
+call, the velocity-rescale and energy-shift thermostats, the Langevin and
+Nose-Hoover chain NVT drivers, observables, and a ``run`` loop with thermo
+lines between chunks of steps.
 
 Units: Angstrom, fs, eV, g/mol, Kelvin (same as the reference).
 """
@@ -24,6 +25,8 @@ ACC_SCALE = 0.009648532800137615
 VEL_SCALE = 0.9118367323190634e-3
 # (g/mol) (Angstrom/fs)^2 = 103.64... eV
 KE_SCALE = 1.0364270099032438e2
+# sqrt(Kelvin * (g/mol)) / fs = 0.0945... eV/Angstrom (Langevin random force)
+FR_SCALE = 0.09450522179973914
 # 1 eV = 11604.5 Kelvin
 EV_PER_KELVIN = 1.160451812e4
 
@@ -97,6 +100,9 @@ class MDConfig:
     scale_vel: Optional[Tuple[int, float]] = None
     control_energy_shift: bool = False
     remove_com: Optional[int] = None    # every N steps
+    # Langevin
+    damp: float = 1.0                   # fs
+    temperature: float = 300.0          # K
 
 
 @dataclasses.dataclass
@@ -271,6 +277,146 @@ class MolecularDynamics:
             if rc and done // rc > prev // rc:
                 x, v = zero_com(self.const, species, state.coordinates,
                                 state.velocities)
-                state = dataclasses.replace(state, coordinates=x,
-                                            velocities=v)
+                if isinstance(state, NHState):
+                    state = dataclasses.replace(
+                        state, base=dataclasses.replace(
+                            state.base, coordinates=x, velocities=v))
+                else:
+                    state = dataclasses.replace(state, coordinates=x,
+                                                velocities=v)
         return state
+
+
+@dataclasses.dataclass
+class NHState:
+    """MD state plus the per-molecule Nose-Hoover chain positions ``xi``
+    and momenta ``vxi``, (nmol, 2)."""
+    base: MDState
+    vxi: torch.Tensor
+    xi: torch.Tensor
+
+    # passthroughs so run() works on the wrapped state
+    @property
+    def coordinates(self):
+        return self.base.coordinates
+
+    @property
+    def velocities(self):
+        return self.base.velocities
+
+    @property
+    def acc(self):
+        return self.base.acc
+
+    @property
+    def P(self):
+        return self.base.P
+
+    @property
+    def step(self):
+        return self.base.step
+
+
+class NoseHooverDynamics(MolecularDynamics):
+    """NVT via a Nose-Hoover chain (length 2, Martyna-Klein-Tuckerman),
+    half a chain update on each side of the velocity-Verlet step.  The
+    reference declares this class as a stub (MolecularDynamics.py:435-436).
+    """
+
+    CHAIN = 2
+
+    def __init__(self, const, tables, seqm_cfg, md_cfg=MDConfig(),
+                 tau: float = 20.0, learned=None, charges=None):
+        super().__init__(const, tables, seqm_cfg, md_cfg, learned, charges)
+        self.tau = tau  # thermostat time constant (fs)
+
+    def initialize(self, species, coordinates, velocities=None,
+                   generator: Optional[torch.Generator] = None,
+                   Temp=300.0) -> NHState:
+        st = super().initialize(species, coordinates, velocities, generator,
+                                Temp)
+        z = torch.zeros((st.coordinates.shape[0], self.CHAIN),
+                        dtype=st.coordinates.dtype, device=self.device)
+        return NHState(base=st, vxi=z, xi=z.clone())
+
+    def _nhc_half(self, species, st: NHState, dt) -> NHState:
+        """Half-step chain update of the thermostat momenta and the
+        velocity scale (factorized MTK scheme)."""
+        kT = self.md_cfg.temperature / EV_PER_KELVIN  # eV
+        v = st.base.velocities
+        ndf = 3.0 * (species > 0).sum(dim=1).to(v.dtype)
+        Q1 = ndf * kT * self.tau ** 2 / KE_SCALE
+        Q2 = kT * self.tau ** 2 / KE_SCALE
+
+        def chain(v0, v1, Ek):
+            G1 = (2.0 * Ek - ndf * kT) / (Q1 * KE_SCALE)
+            damp = torch.exp(-0.125 * dt * v1)
+            return (v0 * damp + 0.25 * dt * G1) * damp
+
+        Ek, _ = kinetic_energy(self.const, species, v)
+        v0, v1 = st.vxi[:, 0], st.vxi[:, 1]
+        v1 = v1 + 0.25 * dt * (Q1 * v0 ** 2 * KE_SCALE - kT) / (Q2 * KE_SCALE)
+        v0 = chain(v0, v1, Ek)
+        scale = torch.exp(-0.5 * dt * v0)
+        xi = st.xi + 0.5 * dt * torch.stack([v0, v1], dim=1)
+        v0 = chain(v0, v1, Ek * scale ** 2)
+        v1 = v1 + 0.25 * dt * (Q1 * v0 ** 2 * KE_SCALE - kT) / (Q2 * KE_SCALE)
+        base = dataclasses.replace(st.base,
+                                   velocities=v * scale[:, None, None])
+        return NHState(base=base, vxi=torch.stack([v0, v1], dim=1), xi=xi)
+
+    def step(self, species, st: NHState, charges=None):
+        species = self._species(species)
+        dt = self.md_cfg.timestep
+        st = self._nhc_half(species, st, dt)
+        base, obs = super().step(species, st.base, charges)
+        st = self._nhc_half(species, NHState(base, st.vxi, st.xi), dt)
+        # Ek/T of the returned (post-thermostat) velocities
+        Ek, T = kinetic_energy(self.const, species, st.base.velocities)
+        return st, obs._replace(Ek=Ek, T=T)
+
+
+class LangevinDynamics(MolecularDynamics):
+    """NVT Langevin thermostat (LAMMPS formula, MolecularDynamics.py:395-432):
+    F = Fc - (m/damp) v + sqrt(2 kB T m / (dt damp)) N(0,1).
+
+    The noise comes from ``generator`` (a torch.Generator on the device of
+    ``const``), given to the constructor or to ``initialize``; every draw
+    goes through :meth:`random_normal`."""
+
+    def __init__(self, const, tables, seqm_cfg, md_cfg=MDConfig(),
+                 learned=None, charges=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(const, tables, seqm_cfg, md_cfg, learned, charges)
+        self.generator = generator
+
+    def initialize(self, species, coordinates, velocities=None,
+                   generator: Optional[torch.Generator] = None,
+                   Temp=300.0) -> MDState:
+        if generator is not None:
+            self.generator = generator
+        if self.generator is None:
+            raise ValueError("LangevinDynamics needs a torch.Generator for "
+                             "its random force (pass generator=)")
+        if self.generator.device.type != self.device.type:
+            raise ValueError(f"the generator is on {self.generator.device}, "
+                             f"the dynamics on {self.device}")
+        return super().initialize(species, coordinates, velocities,
+                                  self.generator, Temp)
+
+    def random_normal(self, state: MDState, shape) -> torch.Tensor:
+        """N(0,1) draws of the random force at ``state`` (its step)."""
+        return torch.randn(shape, generator=self.generator,
+                           dtype=state.coordinates.dtype, device=self.device)
+
+    def compute_force(self, species, state: MDState, charges=None):
+        Fc, P, Epot = super().compute_force(species, state, charges)
+        cfg = self.md_cfg
+        mass = atom_masses(self.const, species)
+        Ff = -mass * state.velocities / cfg.damp / ACC_SCALE
+        Fr = FR_SCALE * torch.sqrt(
+            2.0 * cfg.temperature * mass / cfg.timestep / cfg.damp
+        ) * self.random_normal(state, Fc.shape)
+        F = Fc + Ff + Fr
+        return torch.where((species > 0)[..., None], F, torch.zeros_like(F)), \
+            P, Epot

@@ -64,6 +64,12 @@ class SEQMConfig:
     # when pack_heavy is set; on the flat pair list (dense_pair_grid
     # False) it selects hcore_split / fock(WPackSplit)
     pack_pairs: Optional[bool] = None
+    # row-3 elements (Na..Cl) through the generated-coefficient overlap
+    # (ops/overlap_general.py), on every pair layout; beyond the
+    # reference, which raises for any row-3 pair (diat_overlap.py:65-72).
+    # Elements whose parameter row is all zero for the method stay
+    # unsupported (check_species)
+    row3: bool = False
 
 
 class EnergyOutput(NamedTuple):
@@ -177,17 +183,19 @@ def _integral_stack(const, sys, p, cfg, packed_m: Optional[int] = None):
         def build(sys, p):
             return hcore_dense_split(const, sys, p, packK, packed_m,
                                      cfg.pair_outer_cutoff,
-                                     cfg.precise_overlap)
+                                     cfg.precise_overlap, cfg.row3)
     elif dense:
         def build(sys, p):
             return hcore_dense(const, sys, p, cfg.pair_outer_cutoff,
-                               cfg.precise_overlap)
+                               cfg.precise_overlap, cfg.row3)
     elif packK is not None:
         def build(sys, p):
-            return hcore_split(const, sys, p, packK, cfg.precise_overlap)
+            return hcore_split(const, sys, p, packK, cfg.precise_overlap,
+                               cfg.row3)
     else:
         def build(sys, p):
-            return hcore(const, sys, p, False, cfg.precise_overlap)
+            return hcore(const, sys, p, False, cfg.precise_overlap,
+                         cfg.row3)
     remat = cfg.remat_integrals
     if remat is None:
         remat = A >= 32
@@ -221,19 +229,21 @@ def _species_tensor(species, device) -> torch.Tensor:
     return torch.as_tensor(species, dtype=torch.long, device=device)
 
 
-def check_species(cfg: SEQMConfig, tables, species, charges=None) -> None:
+def check_species(cfg: SEQMConfig, tables, species, charges=None
+                  ) -> np.ndarray:
     """Host-side species/config checks, run on every call: element range,
-    descending-Z sort, closed shell, and no element whose parameter row is
-    all zero for the method (which would silently zero its integrals)."""
+    row 3 only with ``cfg.row3``, descending-Z sort, closed shell, and no
+    element whose parameter row is all zero for the method (which would
+    silently zero its integrals).  Returns the species as a host array."""
     sp = np.asarray(species.cpu() if torch.is_tensor(species) else species)
     ch = None
     if charges is not None:
         ch = np.asarray(charges.cpu() if torch.is_tensor(charges)
                         else charges)
-    validate(sp, ch)
+    validate(sp, ch, allow_row3=cfg.row3)
     present = np.unique(sp[sp > 0])
     if present.size == 0:
-        return
+        return sp
     zrow = tables["zeta_s"].cpu().numpy()[present]
     if (zrow == 0).any():
         bad = sorted(int(z) for z in present[zrow == 0])
@@ -241,6 +251,7 @@ def check_species(cfg: SEQMConfig, tables, species, charges=None) -> None:
             f"elements Z={bad} have no {cfg.method} parameters "
             "(all-zero rows in the published table) — energies would "
             "be silently wrong")
+    return sp
 
 
 def energy(const: Constants, tables: Mapping[str, torch.Tensor],
@@ -254,13 +265,14 @@ def energy(const: Constants, tables: Mapping[str, torch.Tensor],
     (backward mode 0, Hellmann-Feynman) or differentiated by the SCF
     adjoint (mode 1) or through the unrolled iterations (mode 2, also
     twice)."""
-    check_species(cfg, tables, species, charges)
+    sp = check_species(cfg, tables, species, charges)
     species = _species_tensor(species, coordinates.device)
     A = species.shape[1]
     _, packK = _resolve_pair_layout(cfg, A)
     packed = _packed_layout(cfg, A)
     sys = make_system(const, species, coordinates, charges,
-                      cfg.pair_outer_cutoff, heavy_count=packK)
+                      cfg.pair_outer_cutoff, heavy_count=packK,
+                      species_host=sp)
     p = _atom_parameters(tables, cfg.method, sys, learned, coordinates)
 
     if packed is not None:

@@ -6,15 +6,18 @@ pair-list ``hcore`` (optionally placing its integrals on the grid),
 ``dense_pair_geometry``, the ordered-pair ``hcore_dense`` for large
 molecules, the class-segmented ``hcore_dense_split``, whose core
 Hamiltonian comes back as the static packed matrix or as the block grid,
-and the class-segmented flat pair list ``hcore_split``.
+and the class-segmented flat pair list ``hcore_split``.  ``row3`` (each
+of them) adds the row-3 overlap classes (ops/overlap_general.py).
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
-from ..constants import Constants, LENGTH_CONVERSION_FACTOR, OVERLAP_CUTOFF
+from ..constants import (_QN, Constants, LENGTH_CONVERSION_FACTOR,
+                         OVERLAP_CUTOFF)
 from ..system import System, pair_segment_sizes
 from .matrix import assemble_packed_mat, block00, col0_block
 from .multipole import dd_qq, rho1_additive, rho2_additive
@@ -60,8 +63,26 @@ def _diag_add(blk, d0, dp):
     return blk + torch.diag_embed(torch.stack([d0, dp, dp, dp], dim=-1))
 
 
+def _qn_host(sys: System) -> Optional[np.ndarray]:
+    """Host principal quantum numbers (nmol, A), None without host
+    species."""
+    if sys.species_host is None:
+        return None
+    return np.asarray(_QN, np.int64)[sys.species_host]
+
+
+def _qn_pairs_host(sys: System, s=slice(None)):
+    """Host (qn_i, qn_j) of the pair list's slice ``s``, or None."""
+    qh = _qn_host(sys)
+    if qh is None:
+        return None
+    iu, ju = sys.pair_host
+    return qh[:, iu[s]], qh[:, ju[s]]
+
+
 def hcore(const: Constants, sys: System, p: Dict[str, torch.Tensor],
-          dense_grid: bool = False, precise_overlap: bool = True
+          dense_grid: bool = False, precise_overlap: bool = True,
+          row3: bool = False
           ) -> Tuple[torch.Tensor, Union[WPack, WPackGrid]]:
     """Core Hamiltonian block grid and two-electron integrals on the flat
     (i < j) pair list.
@@ -84,7 +105,8 @@ def hcore(const: Constants, sys: System, p: Dict[str, torch.Tensor],
     rij_ov = torch.where(ov_mask, sys.rij, torch.ones_like(sys.rij))
     di = diatom_overlap(const.qn_int[sys.zi], const.qn_int[sys.zj], sys.xij,
                         rij_ov, zeta[:, iu], zeta[:, ju],
-                        precise=precise_overlap)
+                        precise=precise_overlap, row3=row3,
+                        qn_host=_qn_pairs_host(sys) if row3 else None)
     di = torch.where(ov_mask[..., None, None], di, torch.zeros_like(di))
     bi = torch.stack([p["beta_s"], p["beta_p"], p["beta_p"], p["beta_p"]],
                      dim=-1)                                 # (nmol, A, 4)
@@ -122,7 +144,7 @@ def hcore(const: Constants, sys: System, p: Dict[str, torch.Tensor],
 
 
 def hcore_split(const: Constants, sys: System, p: Dict[str, torch.Tensor],
-                K: int, precise_overlap: bool = True
+                K: int, precise_overlap: bool = True, row3: bool = False
                 ) -> Tuple[torch.Tensor, WPackSplit]:
     """Class-segmented flat pair list: per-pair-class integral formulas on
     the static segments of pair_index_packed (the System built with
@@ -159,7 +181,8 @@ def hcore_split(const: Constants, sys: System, p: Dict[str, torch.Tensor],
     pm = sys.pair_mask[:, s_xx]
     di = diatom_overlap(ai(qn, s_xx), aj(qn, s_xx), sys.xij[:, s_xx],
                         rij_ov[:, s_xx], ai(zeta, s_xx), aj(zeta, s_xx),
-                        precise=precise_overlap)
+                        precise=precise_overlap, row3=row3,
+                        qn_host=_qn_pairs_host(sys, s_xx) if row3 else None)
     di = torch.where(ov_mask[:, s_xx][..., None, None], di, z4(di))
     off_xx = di * 0.5 * (ai(bi_full, s_xx)[..., :, None]
                          + aj(bi_full, s_xx)[..., None, :])
@@ -178,7 +201,9 @@ def hcore_split(const: Constants, sys: System, p: Dict[str, torch.Tensor],
     pm = sys.pair_mask[:, s_xh]
     col = diatom_overlap_xh(ai(qn, s_xh), aj(qn, s_xh), sys.xij[:, s_xh],
                             rij_ov[:, s_xh], ai(zeta, s_xh),
-                            aj(p["zeta_s"], s_xh), precise=precise_overlap)
+                            aj(p["zeta_s"], s_xh), precise=precise_overlap,
+                            row3=row3, qn_host=(_qn_pairs_host(sys, s_xh)
+                                                if row3 else None))
     col = torch.where(ov_mask[:, s_xh][..., None], col, z4(col))
     off_xh = col * 0.5 * (ai(bi_full, s_xh)
                           + aj(p["beta_s"], s_xh)[..., None])
@@ -253,7 +278,7 @@ def _dense_cells(sys: System, pair_outer_cutoff: float):
 
 
 def _xx_cells(const, sys, p, mp, rij, xij, pm, ov_mask, rij_ov, s,
-              precise_overlap):
+              precise_overlap, row3=False):
     """Full 22-integral machinery on the ordered sub-grid [s, s]: (off
     (nmol, n, n, 4, 4) overlap x resonance, with qn-swapped cells, ri,
     U, the row-summed electron-core blocks (nmol, n, 4, 4))."""
@@ -279,9 +304,13 @@ def _xx_cells(const, sys, p, mp, rij, xij, pm, ov_mask, rij_ov, s,
     zb = torch.where(swap[..., None], z_i, z_j)
     xc = xij[:, s, s]
     xeff = torch.where(swap[..., None], -xc, xc)
+    qh = _qn_host(sys) if row3 else None
+    if qh is not None:
+        qh = (np.maximum(qh[:, s, None], qh[:, None, s]),
+              np.minimum(qh[:, s, None], qh[:, None, s]))
     di = diatom_overlap(torch.maximum(qni, qnj), torch.minimum(qni, qnj),
                         xeff, rij_ov[:, s, s], za, zb,
-                        precise=precise_overlap)
+                        precise=precise_overlap, row3=row3, qn_host=qh)
     di = torch.where(swap[..., None, None], di.transpose(-1, -2), di)
     di = torch.where(ov_mask[:, s, s][..., None, None], di, z4(di))
     off = di * 0.5 * (bi_full[:, s, None, :, None]
@@ -312,7 +341,7 @@ def _with_diag_cells(off, dblk):
 
 def hcore_dense(const: Constants, sys: System, p: Dict[str, torch.Tensor],
                 pair_outer_cutoff: float = 1.0e10,
-                precise_overlap: bool = True
+                precise_overlap: bool = True, row3: bool = False
                 ) -> Tuple[torch.Tensor, WPackGrid]:
     """Gather-free ordered-pair core Hamiltonian for large molecules.
 
@@ -326,7 +355,7 @@ def hcore_dense(const: Constants, sys: System, p: Dict[str, torch.Tensor],
     pm, rij, xij, ov_mask, rij_ov = _dense_cells(sys, pair_outer_cutoff)
     mp = atom_multipoles(const, sys.species, p)
     off, ri, U, dblk = _xx_cells(const, sys, p, mp, rij, xij, pm, ov_mask,
-                                 rij_ov, slice(None), precise_overlap)
+                                 rij_ov, slice(None), precise_overlap, row3)
     zA = torch.zeros_like(p["U_ss"])
     dblk = _diag_add(dblk, torch.where(am, p["U_ss"], zA),
                      torch.where(am, p["U_pp"], zA))
@@ -341,6 +370,7 @@ def hcore_dense_split(
     packed_m: Optional[int] = None,
     pair_outer_cutoff: float = 1.0e10,
     precise_overlap: bool = True,
+    row3: bool = False,
 ) -> Tuple[torch.Tensor, WPackGridSplit]:
     """Class-segmented gather-free core Hamiltonian and integrals.
 
@@ -372,18 +402,20 @@ def hcore_dense_split(
     sH = slice(0, K)
     off_xx, ri_xx, U_xx, dblk_h = _xx_cells(const, sys, p, mp, rij, xij, pm,
                                             ov_mask, rij_ov, sH,
-                                            precise_overlap)
+                                            precise_overlap, row3)
 
     # ---- XH block [0:K, K:A]: 4-integral class, s-only columns ----
     sL = slice(K, A)
     pm_xh = pm[:, sH, sL]
+    qh = _qn_host(sys) if row3 else None
     col_ov = diatom_overlap_xh(
         qn[:, sH, None].expand(nmol, K, AH),
         qn[:, None, sL].expand(nmol, K, AH),
         xij[:, sH, sL], rij_ov[:, sH, sL],
         zeta[:, sH, None, :].expand(nmol, K, AH, 2),
         p["zeta_s"][:, None, sL].expand(nmol, K, AH),
-        precise=precise_overlap)
+        precise=precise_overlap, row3=row3,
+        qn_host=None if qh is None else (qh[:, sH, None], qh[:, None, sL]))
     col_ov = torch.where(ov_mask[:, sH, sL][..., None], col_ov, z4(col_ov))
     beta_xh = 0.5 * (bi_full[:, sH, None, :] + p["beta_s"][:, None, sL, None])
     off_xh = col_ov * beta_xh                           # (nmol, K, AH, 4)

@@ -1,4 +1,4 @@
-"""Diatomic STO overlap integrals (s/p valence shells, rows 1-2).
+"""Diatomic STO overlap integrals (s/p valence shells, rows 1-3).
 
 PyTorch counterpart of ``pyseqm_tpu/ops/overlap.py`` (a branch-free rebuild
 of the reference ``diatom_overlap_matrix``, seqm/seqm_functions/
@@ -13,9 +13,15 @@ Precision: the reference evaluates the A/B auxiliary integrals and their
 alternating-sign combinations in float64.  ``precise=True`` (float32 inputs
 only) evaluates the chain in double-float (hi, lo) arithmetic on plain f32
 ops; its gradient is the plain-f32 chain's (see _STf).
+
+``row3`` adds the (3,1), (3,2) and (3,3) classes (Na..Cl) from the
+generated coefficients of ops/overlap_general.py, evaluated on each class's
+own cells only (index lists from host copies of the principal quantum
+numbers) and scattered over the hand-coded classes' values.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .accmath import exp as _exp
@@ -312,18 +318,59 @@ def _combinations(rij, zsi, zpi, zsj, zpj, jcall2, jcall3, jcall4, precise,
                            False, mode)
 
 
-def diatom_overlap_xh(qni, qnj, xij, rij, zeta_i, zsj, precise=False):
+ROW3_CLASSES = ((3, 1), (3, 2), (3, 3))
+
+
+def _row3_classes(combos, rij, zsi, zpi, zsj, zpj, precise, qni, qnj,
+                  qn_host, classes):
+    """``combos`` (the five combinations on every cell) with the cells of
+    each row-3 class replaced by the generated-coefficient values.
+
+    The cells of a class are listed on the host from ``qn_host`` = (qn_i,
+    qn_j), numpy arrays broadcastable to rij's shape; without it they are
+    copied from qni/qnj (a device sync).  Each class runs on its own cells
+    only, and none runs when its class is absent."""
+    from .overlap_general import (s_combinations_general,
+                                  s_combinations_general_tf)
+    if qn_host is None:
+        qn_host = (qni.cpu().numpy(), qnj.cpu().numpy())
+    shape = rij.shape
+    qi, qj = (np.broadcast_to(q, shape).reshape(-1) for q in qn_host)
+    gen = (s_combinations_general_tf
+           if precise and rij.dtype == torch.float32 else
+           s_combinations_general)
+    out = [c.reshape(-1) for c in combos]
+    for na, nb in classes:
+        sel = np.flatnonzero((qi == na) & (qj == nb))
+        if sel.size == 0:
+            continue
+        idx = torch.as_tensor(sel, device=rij.device)
+        # nb == 1 (X-H): the lighter atom is s-only, S121..S222 stay zero
+        g = gen(na, nb, *[t.expand(shape).reshape(-1)[idx]
+                          for t in (rij, zsi, zpi, zsj, zpj)],
+                n=5 if nb > 1 else 2)
+        for k, gk in enumerate(g):
+            out[k] = out[k].scatter(0, idx, gk)
+    return [o.reshape(shape) for o in out]
+
+
+def diatom_overlap_xh(qni, qnj, xij, rij, zeta_i, zsj, precise=False,
+                      row3=False, qn_host=None):
     """Overlap column (AOs on i | s AO on j) for the X-H pair segment:
     S[0] = S_ss, S[1+p] = S_sigma_s v_p (cf. the reference's jcall==3
-    branch, diat_overlap.py:253-298).  Returns (..., 4)."""
+    branch, diat_overlap.py:253-298).  ``row3`` adds the (3,1) class
+    (``qn_host`` as in diatom_overlap).  Returns (..., 4)."""
     jcall2 = (qni == 1) & (qnj == 1)
     jcall3 = (qni == 2) & (qnj == 1)
     zsi, zpi = zeta_i[..., 0], zeta_i[..., 1]
     one = torch.ones_like(rij)
-    S111, S211, _, _, _ = _combinations(rij, zsi, zpi, zsj, one, jcall2,
-                                        jcall3, torch.zeros_like(jcall3), precise, 3)
+    S = _combinations(rij, zsi, zpi, zsj, one, jcall2, jcall3,
+                      torch.zeros_like(jcall3), precise, 3)
+    if row3:
+        S = _row3_classes(S, rij, zsi, zpi, zsj, one, precise, qni, qnj,
+                          qn_host, ROW3_CLASSES[:1])
     v = _reg_v(xij)
-    return torch.cat([S111[..., None], S211[..., None] * v], dim=-1)
+    return torch.cat([S[0][..., None], S[1][..., None] * v], dim=-1)
 
 
 def diatom_overlap_hh(qni, qnj, rij, zsi, zsj, precise=False):
@@ -336,7 +383,8 @@ def diatom_overlap_hh(qni, qnj, rij, zsi, zsj, precise=False):
     return S111
 
 
-def diatom_overlap(qni, qnj, xij, rij, zeta_i, zeta_j, precise=False):
+def diatom_overlap(qni, qnj, xij, rij, zeta_i, zeta_j, precise=False,
+                   row3=False, qn_host=None):
     """Overlap 4x4 block between the AOs of an (i, j) pair.
 
     Args:
@@ -344,16 +392,24 @@ def diatom_overlap(qni, qnj, xij, rij, zeta_i, zeta_j, precise=False):
       xij: (..., 3) unit vector i->j.
       rij: (...,) distance in Bohr.
       zeta_i, zeta_j: (..., 2) [zeta_s, zeta_p] orbital exponents.
-      precise: double-float A/B chain (float32 inputs only).
+      precise: double-float A/B chain (float32 inputs only; with row3 the
+        row-3 classes' chain too).
+      row3: add the (3,1)/(3,2)/(3,3) classes (ops/overlap_general.py),
+        beyond the reference, which raises for any row-3 pair.
+      qn_host: (qn_i, qn_j) as host numpy arrays broadcastable to rij's
+        shape, the row-3 classes' cell lists without a device sync.
 
     Returns: (..., 4, 4) overlap in the molecular frame (rows: AOs on i).
     """
     jcall2 = (qni == 1) & (qnj == 1)
     jcall3 = (qni == 2) & (qnj == 1)
     jcall4 = (qni == 2) & (qnj == 2)
-    S111, S211, S121, S221, S222 = _combinations(
-        rij, zeta_i[..., 0], zeta_i[..., 1], zeta_j[..., 0], zeta_j[..., 1],
-        jcall2, jcall3, jcall4, precise, 4)
+    zs = (zeta_i[..., 0], zeta_i[..., 1], zeta_j[..., 0], zeta_j[..., 1])
+    S = _combinations(rij, *zs, jcall2, jcall3, jcall4, precise, 4)
+    if row3:
+        S = _row3_classes(S, rij, *zs, precise, qni, qnj, qn_host,
+                          ROW3_CLASSES)
+    S111, S211, S121, S221, S222 = S
 
     v = _reg_v(xij)
     eye3 = torch.eye(3, dtype=rij.dtype, device=rij.device)

@@ -109,6 +109,12 @@ class System:
     rij: torch.Tensor            # (nmol, NP) distance in Bohr (1 where masked)
     xij: torch.Tensor            # (nmol, NP, 3) unit vector i->j
 
+    # host copies, for index lists built without a device sync (the row-3
+    # overlap classes): the species when they came from the host, and the
+    # static pair list
+    species_host: Optional[np.ndarray] = None
+    pair_host: Optional[Tuple[np.ndarray, np.ndarray]] = None
+
     @property
     def nmol(self) -> int:
         return self.species.shape[0]
@@ -171,14 +177,19 @@ def make_system(
     charges=None,
     pair_outer_cutoff: float = 1.0e10,
     heavy_count: Optional[int] = None,
+    species_host: Optional[np.ndarray] = None,
 ) -> System:
     """Build a :class:`System` (differentiable with respect to coordinates).
 
     ``pair_outer_cutoff`` is in the units of ``coordinates`` (Angstrom).
     ``heavy_count`` (= packed_heavy_count(species)) orders the pair list
-    class-segmented (see :func:`pair_index_packed`).
+    class-segmented (see :func:`pair_index_packed`).  ``species_host``: a
+    host copy of the species (taken from ``species`` when that is not a
+    tensor).
     """
     device, dtype = coordinates.device, coordinates.dtype
+    if species_host is None and not torch.is_tensor(species):
+        species_host = np.asarray(species)
     species = torch.as_tensor(species, dtype=torch.long, device=device)
     nmol, A = species.shape
     if charges is None:
@@ -217,4 +228,7 @@ def make_system(
         nheavy=nheavy, nhydro=nhydro, nocc=nocc, norb=norb,
         pair_i=iu, pair_j=ju, zi=zi, zj=zj,
         pair_mask=pair_mask, rij=rij, xij=xij,
+        species_host=species_host,
+        pair_host=(pair_index(A) if heavy_count is None
+                   else pair_index_packed(A, int(heavy_count))),
     )

@@ -4,8 +4,10 @@ answers where there are any), K3's second derivative against double
 backward through its plain version, short float32 XL-BOMD runs (SP2 and
 eigh densities) through the kernels, the default flat layout's and the
 class-segmented flat pair list's energy and force, the SCF adjoint's
-parameter and coordinate gradients and a water Hessian through the
-unrolled SCF, against the CPU runs of the same inputs.
+parameter and coordinate gradients, a water Hessian through the
+unrolled SCF, the Langevin and Nose-Hoover drivers, steepest descent and
+the warm L-BFGS, and row 3 in every layout, against the CPU runs of the
+same inputs.
 
 These tests need the card and skip without one.  They import neither JAX
 nor the JAX package, so they run where only PyTorch is installed:
@@ -437,3 +439,102 @@ def test_default_layout_on_card_matches_cpu(cuda):
     # f32-vs-f64 tests (1.5e-4 eV, 1e-3 eV/A)
     np.testing.assert_allclose(hg.numpy(), hc.numpy(), rtol=0, atol=1.5e-4)
     np.testing.assert_allclose(fg.numpy(), fc.numpy(), rtol=0, atol=1e-3)
+
+
+def _nvt_run(drv, sp, co, v0, dev, steps=3):
+    st = drv.initialize(sp, torch.tensor(co, device=dev),
+                        velocities=torch.tensor(v0, device=dev))
+    for _ in range(steps):
+        st, _ = drv.step(sp, st)
+    return st
+
+
+def test_nvt_drivers_on_card_match_cpu(cuda):
+    """Langevin (the same normal draws fed on both devices) and
+    Nose-Hoover, 3 steps at float64 (K3 in every Fock build and force
+    backward) on the card against the CPU run: 1e-8."""
+    from pyseqm_tpu_torch.drivers.md import (LangevinDynamics,
+                                             NoseHooverDynamics)
+    sp, co = make_batch(6, 8, jitter=0.02, seed=4)
+    v0 = np.random.default_rng(1).standard_normal(co.shape) * 0.01
+    v0[sp == 0] = 0.0
+    noise = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (8,) + co.shape))
+    out = {}
+    for dev in ("cpu", cuda):
+        const, tables, cfg = pt.build(
+            "AM1", dtype=torch.float64, device=dev,
+            scf=SCFConfig(eps=1.0e-10, converger=(2,)))
+        lang = LangevinDynamics(const, tables, cfg,
+                                MDConfig(timestep=0.5, damp=10.0),
+                                generator=torch.Generator(dev))
+        lang.random_normal = lambda st, shape, d=dev: noise[st.step].to(d)
+        nh = NoseHooverDynamics(const, tables, cfg, MDConfig(timestep=0.4),
+                                tau=10.0)
+        f0 = wapply_kernel.launches_fwd
+        sl = _nvt_run(lang, sp, co, v0, dev)
+        sn = _nvt_run(nh, sp, co, v0, dev)
+        out[str(dev)] = [t.cpu() for t in (sl.coordinates, sl.velocities,
+                                           sn.coordinates, sn.velocities,
+                                           sn.vxi, sn.xi)]
+        out[str(dev) + "_k3"] = wapply_kernel.launches_fwd - f0
+    assert out["cpu_k3"] == 0 and out["cuda_k3"] > 0
+    for a, b in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-8)
+
+
+def test_optimizers_on_card_match_cpu(cuda):
+    """Chunked steepest descent (8 evaluations) and one 5-iteration chunk
+    of the warm L-BFGS at float64 on the card against the CPU run: the
+    geometries to 1e-8, the iteration counts exact."""
+    from pyseqm_tpu_torch.drivers.opt import (geometry_optimize_sd,
+                                              make_lbfgs_warm)
+    sp, co = make_batch(6, 8, jitter=0.05, seed=4)
+    out = {}
+    for dev in ("cpu", cuda):
+        const, tables, cfg = pt.build(
+            "AM1", dtype=torch.float64, device=dev,
+            scf=SCFConfig(eps=1.0e-10, converger=(2,)))
+        x = torch.tensor(co, device=dev)
+        xs, _, _ = geometry_optimize_sd(const, tables, cfg, sp, x,
+                                        alpha=0.004, force_tol=0.0,
+                                        max_evl=8, chunk=4)
+        init, run = make_lbfgs_warm(const, tables, cfg, sp, chunk=5)
+        st, _, _ = run(init(x))
+        out[str(dev)] = (xs.cpu(), st.x.cpu(), st.nit, st.done.cpu())
+    (sc, lc, nc, dc), (sg, lg, ng, dg) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(sg.numpy(), sc.numpy(), rtol=0, atol=1e-8)
+    np.testing.assert_allclose(lg.numpy(), lc.numpy(), rtol=0, atol=1e-8)
+    assert ng == nc and bool((dg == dc).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_row3_on_card_matches_cpu(cuda, dtype):
+    """Row 3 (H2S, CH3SH and the row-3-free rest of ROW3_NAMES) in the
+    packed dense, the flat split and the flat layouts on the card against
+    the CPU run: 1e-8 eV and 1e-7 eV/A at float64, the f32 budget (1.5e-4
+    eV, 1e-3 eV/A) at float32, where the row-3 classes take the
+    double-float chain."""
+    from pyseqm_tpu_torch.utils.molecules import ROW3_NAMES
+    sp, co = make_batch(12, 8, jitter=0.02, seed=4, names=ROW3_NAMES)
+    assert (sp == 16).any()
+    K = pt.packed_heavy_count(sp)
+    tol = ((1e-8, 1e-7) if dtype == torch.float64 else (1.5e-4, 1e-3))
+    eps = 1.0e-10 if dtype == torch.float64 else 1.0e-5
+    for kw in (dict(scf=SCFConfig(eps=eps, converger=(2,), pack_heavy=K)),
+               dict(scf=SCFConfig(eps=eps, converger=(2,), pack_heavy=K),
+                    dense_pair_grid=False),
+               dict(scf=SCFConfig(eps=eps, converger=(2,)))):
+        out = {}
+        for dev in ("cpu", cuda):
+            const, tables, cfg = pt.build("PM3", dtype=dtype, device=dev,
+                                          row3=True, **kw)
+            f, o = pt.force(const, tables, cfg, sp,
+                            torch.tensor(co, dtype=dtype, device=dev))
+            assert not bool(o.notconverged.any())
+            out[str(dev)] = (f.cpu(), o.Hf.cpu())
+        (fc, hc), (fg, hg) = out["cpu"], out["cuda"]
+        np.testing.assert_allclose(hg.numpy(), hc.numpy(), rtol=0,
+                                   atol=tol[0])
+        np.testing.assert_allclose(fg.numpy(), fc.numpy(), rtol=0,
+                                   atol=tol[1])

@@ -153,6 +153,26 @@ def test_port_imports_no_jax():
                                        "tools"), (path, line)
 
 
+@pytest.mark.parametrize("mod", ["pyseqm_tpu_torch.drivers.md",
+                                 "pyseqm_tpu_torch.drivers.opt",
+                                 "pyseqm_tpu_torch.ops.overlap_general"])
+def test_new_modules_import_no_jax(mod):
+    """The thermostats, the optimizers and the row-3 overlap import
+    neither JAX nor the JAX package, and their entry points refuse to run
+    on the default device without a GPU (build's CUDA default)."""
+    code = (f"import sys, importlib; importlib.import_module({mod!r});"
+            "bad=[m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'pyseqm_tpu', 'tools')];"
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            pt.build("PM3", row3=True)
+
+
 def _pairs(dtype, n=4096, seed=0):
     rng = np.random.RandomState(seed)
     a = (rng.randn(n) * 10.0 ** rng.uniform(-3, 3, n)).astype(dtype)

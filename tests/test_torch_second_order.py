@@ -41,8 +41,11 @@ def _np(x):
 
 @functools.lru_cache(maxsize=None)
 def jax_water_hessian():
-    """JAX's 9x9 water Hessian through the mode-2 SCF
-    (jax.jacfwd(jax.grad(Hf)))."""
+    """JAX's 9x9 water Hessian through the mode-2 SCF, forward over
+    reverse: one jitted jvp of jax.grad(Hf), called once per coordinate
+    direction.  The same derivative as jax.jacfwd(jax.grad(Hf)), whose
+    vmap over the 9 tangents doubles the XLA compile (277 s against 147 s
+    cold on the CPU)."""
     jc = pq.make_constants(dtype=jnp.float64)
     jt = pq.load_element_tables("AM1", dtype=jnp.float64)
     cfg = pq.SEQMConfig(method="AM1", scf=JSCFConfig(**WATER_SCF))
@@ -50,8 +53,10 @@ def jax_water_hessian():
 
     def hf(c):
         return jnp.sum(pq.energy(jc, jt, cfg, sp, c).Hf)
-    H = jax.jit(jax.jacfwd(jax.grad(hf)))(jnp.asarray(WATER_CO))
-    return np.asarray(H).reshape(9, 9)
+    column = jax.jit(lambda c, t: jax.jvp(jax.grad(hf), (c,), (t,))[1])
+    c0 = jnp.asarray(WATER_CO)
+    return np.stack([np.asarray(column(c0, jnp.asarray(e))).reshape(-1)
+                     for e in np.eye(9).reshape(9, 1, 3, 3)], axis=1)
 
 
 def port_hessian(dtype, remat=None):
