@@ -103,9 +103,9 @@ line is printed):
     over one period of its chain's oscillation;
 26. opt and opt-conv (`bench.py --config opt`, `opt-conv`): the warm
     batched L-BFGS (chunk 10, force_tol 1e-3) on 2,048 molecules (jitter
-    0.05): molecule-iterations/s over the first 60 iterations, converged
-    molecules/s at every molecule done or 400 iterations, molecules
-    converged and frozen by forced accepts; no molecule's Hf rises;
+    0.05) for its first 40 iterations: molecule-iterations/s, the
+    molecules converged by then per second, molecules frozen by forced
+    accepts; no molecule's Hf rises;
 27. opt-sd (`bench.py --config opt-sd`): chunked steepest descent, 60
     force evaluations on the opt batch: molecule-evaluations/s;
 28. scf-row3 (`bench.py --config scf-row3`): the headline batch with 25%
@@ -117,6 +117,26 @@ line is printed):
     geometry (Hf -0.913 kcal/mol, a stationary point), and the warm L-BFGS
     from 1.42 A / 99 deg to it (1.2903 A, 93.51 deg); MNDO and AM1 into
     tests/test_row3.py's windows;
+30. xlbomd-ml-trained (`bench.py --config xlbomd-ml-trained`): PM3 with
+    the reference's trained HIP-NN model predicting nine parameters of
+    every atom inside each XL-BOMD force at full width: bootstrap SCF, 5
+    warm-up and 20 timed steps, steps/s, launches and device time of one
+    profiled step, drift; then float32 against float64 on 256 molecules:
+    the parameters, the float32 network in the float64 force, the whole
+    path;
+31. xlbomd-ml (`bench.py --config xlbomd-ml`): AM1 with the random-init
+    parameter network of models/ml.py: bench.py's learned-vs-table check,
+    then the same XL run;
+32. ml-hooks: Kbeta and g_ss_nuc on 1,024 molecules on the packed
+    class-segmented grid (SP2) and the default flat layout (eigh): the
+    identities, a random Kbeta at float32 against float64, energy_xl's
+    Enuc against energy()'s;
+33. ml-grad: the gradient of a loss to every HIP-NN weight through the
+    SCF adjoint on 1,024 molecules, float32 against float64;
+34. resume: 10 steps straight against 5, a checkpoint, a fresh driver and
+    5 more, bit for bit, on the headline XL-SP2 path and the Langevin
+    bomd path (with the generator's state); run(thermo=2, dump=3)'s xyz
+    frames and a Timing;
 23. a JSON line of every kernel with its launches, error and times against
     its bound; then the card; the elapsed time; then the result line.
 
@@ -230,7 +250,36 @@ BOMD_WARMUP, BOMD_STEPS = 2, 8
 # period (phase 25's docstring)
 NVT_NMOL, NVT_SAMPLE, NH_SAMPLE = NMOL, 40, 111
 OPT_NMOL = 2048
+# the L-BFGS runs its first OPT_ITERS iterations: run to every molecule
+# done (106 iterations) it took 272-446 s of this script's time limit on
+# a host-bound H100 step, 60 iterations 199-270 s
+OPT_ITERS = 40
 TOL_NVT_T, TOL_OPT_RISE = 15.0, 1.0e-5
+# the learned-parameter paths (phases 30-34): timed XL steps after WARMUP;
+# molecules of the hook and weight-gradient phases; steps of the resume
+# check.  Bounds, from float32 against float64 on the CPU (256 headline
+# molecules, PM3): the HIP-NN parameters read 8.2e-8 of each parameter's
+# largest value, bound 1e-6; the float32 network inside the float64 force
+# read 8.5e-6 eV and 3.5e-5 eV/A, held to the headline bounds TOL_HF and
+# TOL_F; the whole float32 PM3 path with the network read 1.58e-4 eV and
+# 5.8e-3 eV/A, and without it (the PM3 table) 1.1e-4 eV and 3.8e-3 eV/A
+# (a CH2O, in its electronic gradient; AM1 reads 6.6e-4 eV/A there), so
+# the whole path is held to about twice its reading, TOL_HF_PM3 and
+# TOL_F_PM3.  The weight gradient read 7.5e-5 of each tensor's largest
+# value at worst, bound 1e-3.  The XL energy drift of the trained-model
+# path (PM3 + HIP-NN, dt 0.4 fs) read 2.87e-2 eV on the CPU over 2,048
+# headline molecules at float32 (a water; p99 1.7e-2) and the same at
+# float64 (2.87e-2 over 256 molecules, each molecule's float32 drift
+# within 3.0e-4 eV of its float64 drift); the float64 Born-Oppenheimer
+# dynamics of that water read 2.0e-2 eV at 0.4 fs and 4.5e-3 at 0.2 fs:
+# the Verlet error (dt^2) of the model's surface, not float32 and not the
+# XL integrator.  So that path is held to TOL_DRIFT_HIPNN absolutely and
+# to TOL_DRIFT_F32 against its own float64 drift
+TOL_DRIFT_HIPNN, TOL_DRIFT_F32 = 0.05, 3.0e-3
+ML_STEPS, ML_HOOK_NMOL, RESUME_STEPS = 20, 1024, 10
+TOL_ML_PARAM, TOL_ML_GRAD = 1.0e-6, 1.0e-3
+TOL_HF_PM3, TOL_F_PM3 = 3.0e-4, 1.2e-2
+TOL_ENUC = TOL_HF
 
 
 class PhaseError(RuntimeError):
@@ -1275,6 +1324,20 @@ def k3_tap():
 
 
 @contextlib.contextmanager
+def deterministic():
+    """torch.use_deterministic_algorithms while active (warnings only for
+    an op without a deterministic version)."""
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message=".*deterministic")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(prev)
+
+
+@contextlib.contextmanager
 def patched(module, name, value):
     """``module.name`` replaced by ``value`` while active."""
     orig = getattr(module, name)
@@ -2122,9 +2185,9 @@ def phase_nvt(card):
 def phase_opt(card):
     """``bench.py --config opt`` and ``opt-conv`` in one run: the warm
     batched L-BFGS (chunk 10, force_tol 1e-3) on OPT_NMOL molecules
-    (jitter 0.05): molecule-iterations/s over the first 60 iterations,
-    then on to every molecule done or 400 iterations, converged
-    molecules/s; no molecule's Hf rises."""
+    (jitter 0.05) for its first OPT_ITERS iterations: molecule-iterations/s,
+    and the molecules converged by then per second; no molecule's Hf
+    rises."""
     from pyseqm_tpu_torch.drivers.opt import make_lbfgs_warm
     const, tables, cfg, species, coords = bomd_setup(OPT_NMOL, torch.float32,
                                                      jitter=0.05,
@@ -2137,27 +2200,21 @@ def phase_opt(card):
     sync()
     kernels_reset()
     t0 = time.perf_counter()
-    t60 = None
-    while state.nit < 400 and not bool(state.done.all()):
+    while state.nit < OPT_ITERS and not bool(state.done.all()):
         state, _, _ = run(state)
-        if t60 is None and state.nit >= 60:
-            sync()
-            t60, nit60 = time.perf_counter() - t0, state.nit
     sync()
     dt = time.perf_counter() - t0
     n = kernel_counts()
-    if t60 is None:
-        t60, nit60 = dt, state.nit
     gerr = state.g.abs().amax(dim=-1)
     ncv = int((gerr <= 1.0e-3).sum())
     frozen = int(state.done.sum()) - ncv
     rise = (state.E - E0).max().item()
     finite = bool(torch.isfinite(state.x).all() and torch.isfinite(state.E)
                   .all())
-    mips = OPT_NMOL * nit60 / t60
+    mips = OPT_NMOL * state.nit / dt
     print(f"[26 opt] {OPT_NMOL} x {MOLSIZE} AM1 f32 warm L-BFGS chunk 10 "
           f"force_tol 1e-3: {mips:.1f} molecule-iterations/s over the first "
-          f"{nit60} iterations ({t60:.2f} s) on {card}", flush=True)
+          f"{state.nit} iterations ({dt:.2f} s) on {card}", flush=True)
     print(f"[26 opt-conv] {state.nit} iterations in {dt:.2f} s: "
           f"{ncv} converged to max|g| <= 1e-3 ({ncv / dt:.1f} converged "
           f"molecules/s), {frozen} frozen by forced accepts, "
@@ -2167,7 +2224,7 @@ def phase_opt(card):
     check(finite, "opt: non-finite state")
     check(rise <= TOL_OPT_RISE, f"opt: an Hf rose by {rise} eV")
     check(n[0] > 0 and n[2] > 0 and n[3] > 0, f"opt launches {n}")
-    return {"molecule_iterations_per_s": mips, "iterations_timed": nit60,
+    return {"molecule_iterations_per_s": mips, "iterations_timed": state.nit,
             "converged_molecules_per_s": ncv / dt, "iterations": state.nit,
             "converged": ncv, "frozen_forced": frozen, "s": dt,
             "largest_hf_rise": rise, "k1_launches": n[0],
@@ -2352,6 +2409,491 @@ def phase_row3_pin(card):
               and 89.0 < v["angle"] < 100.0, f"{m} H2S optimum {v}")
     check(n[2] > 0 and n[3] > 0, f"row3 pin launches {n}")
     out["k3_launches"] = n[2:]
+    return out
+
+
+def ml_setup(method, nmol, dtype, eps, sp2_eps, use_sp2=True, **scf):
+    """``bench.py --config xlbomd-ml(-trained)``'s batch and configuration
+    (the first nmol molecules): the headline SCF and layout with
+    ``method``; float64 references at eps 1e-10 and sp2_eps 1e-7."""
+    import pyseqm_tpu_torch as pt
+    from pyseqm_tpu_torch.scf import SCFConfig
+    from pyseqm_tpu_torch.utils.molecules import make_batch
+    sp, co = make_batch(NMOL, MOLSIZE, jitter=0.02)
+    sp, co = sp[:nmol], co[:nmol]
+    const, tables, cfg = pt.build(
+        method, dtype=dtype, device=DEV,
+        scf=SCFConfig(eps=eps, converger=(2,), use_sp2=use_sp2,
+                      sp2_eps=sp2_eps, max_iter=200,
+                      pack_heavy=pt.packed_heavy_count(sp),
+                      raise_on_forward_failure=True, **scf))
+    species = torch.tensor(sp, dtype=torch.long, device=DEV)
+    coords = torch.tensor(co.astype(np.float32), dtype=dtype, device=DEV)
+    return const, tables, cfg, species, coords
+
+
+def ml_xl_drift(const, tables, cfg, species, coords, learned):
+    """Per-molecule max |Etot - Etot(warm-up end)| over ML_STEPS XL steps
+    after the bootstrap and WARMUP steps (no timing)."""
+    from pyseqm_tpu_torch.drivers.md import MDConfig
+    from pyseqm_tpu_torch.drivers.xlbomd import XLBOMD
+    md = XLBOMD(const, tables, cfg, MDConfig(timestep=0.4), k=5,
+                learned=learned)
+    state = md.initialize(species, coords,
+                          velocities=torch.zeros_like(coords),
+                          initial_force=False)
+    etots = []
+    for _ in range(WARMUP + ML_STEPS):
+        state, obs = md.step(species, state)
+        etots.append((obs.Ek + obs.Epot).double())
+    e = torch.stack(etots)
+    return (e[WARMUP:] - e[WARMUP - 1][None]).abs().amax(dim=0)
+
+
+def ml_xl_run(card, label, const, tables, cfg, species, coords, learned,
+              tol_drift=TOL_DRIFT):
+    """XL-BOMD (k=5, 0.4 fs) with per-atom parameters from ``learned``
+    evaluated inside every force: the bootstrap SCF, WARMUP steps, then
+    ML_STEPS timed; steps/s, the launches and device kernel time of one
+    profiled step against the timed step, K1/K3 launches, and the energy
+    drift over the timed steps (at most ``tol_drift``).  Returns the
+    results and the per-molecule drift.  The counters are reset first and
+    read last."""
+    from pyseqm_tpu_torch.drivers.md import MDConfig
+    from pyseqm_tpu_torch.drivers.xlbomd import XLBOMD
+    md = XLBOMD(const, tables, cfg, MDConfig(timestep=0.4), k=5,
+                learned=learned)
+    kernels_reset()
+    sync()
+    t0 = time.perf_counter()
+    state = md.initialize(species, coords,
+                          velocities=torch.zeros_like(coords),
+                          initial_force=False)
+    sync()
+    t_boot = time.perf_counter() - t0
+    boot = kernel_counts()
+    for _ in range(WARMUP):
+        state, obs = md.step(species, state)
+    e_ref = (obs.Ek + obs.Epot).double()
+    etots = []
+    sync()
+    n0 = kernel_counts()
+    t0 = time.perf_counter()
+    for _ in range(ML_STEPS):
+        state, obs = md.step(species, state)
+        etots.append(obs.Ek + obs.Epot)
+    sync()
+    dt = time.perf_counter() - t0
+    per_step = [(b - a) / ML_STEPS for a, b in zip(n0, kernel_counts())]
+    per_mol = (torch.stack(etots).double() - e_ref[None]).abs().amax(dim=0)
+    drift = per_mol.max().item()
+    finite = bool(torch.isfinite(state.coordinates).all()
+                  and torch.isfinite(torch.stack(etots)).all())
+    step_ms = 1e3 * dt / ML_STEPS
+    launches, dev_ms = profile_step(md, species, state)
+    n = kernel_counts()
+    sps = ML_STEPS / dt
+    print(f"[{label}] {species.shape[0]} x {MOLSIZE} {cfg.method} f32 k=5 "
+          f"dt=0.4, learned parameters every step: bootstrap SCF "
+          f"{t_boot:.3f} s (K1 {boot[0]}), notconverged 0 "
+          f"(raise_on_forward_failure) | {sps:.3f} steps/s ({step_ms:.1f} "
+          f"ms/step) on {card} | per step K1 {per_step[0]:g} K3 fwd "
+          f"{per_step[2]:g} bwd {per_step[3]:g} | one profiled step: "
+          f"{launches} kernel launches, device kernel time {dev_ms:.1f} ms "
+          f"(device busy share {dev_ms / step_ms:.3f}) | |Etot - "
+          f"Etot(warm-up end)| per molecule eV {fmt(per_mol)} | finite "
+          f"{finite}", flush=True)
+    check(finite, f"{label}: non-finite MD state")
+    check(drift <= tol_drift, f"{label}: energy drift {drift} > {tol_drift}")
+    check(n[0] > 0 and n[2] > 0 and n[3] > 0, f"{label}: launches {n}")
+    return {"steps_per_s": sps, "ms_per_step": step_ms,
+            "bootstrap_s": t_boot, "drift_max_eV": drift,
+            "launches_per_step": launches, "device_ms_per_step": dev_ms,
+            "device_busy_share": dev_ms / step_ms,
+            "k1_per_step": per_step[0], "k3_per_step": per_step[2:],
+            "k1_launches": n[0], "k2_launches": n[1], "k3_launches": n[2:]}, \
+        per_mol
+
+
+def phase_xlbomd_ml_trained(card):
+    """``bench.py --config xlbomd-ml-trained`` at full width: PM3 with the
+    reference's trained HIP-NN model predicting nine parameters of every
+    atom inside each force (autograd carries dp/dx into the force); then
+    float32 against float64 on the first 256 molecules: the network's
+    parameters, the float32 network inside the float64 force, and the
+    whole float32 path (beside the PM3 table's own float32 path), and the
+    XL drift of the same molecules at float64 against the float32 run's.
+
+    The drift bound is TOL_DRIFT_HIPNN, not the headline's TOL_DRIFT: the
+    trained model's surface carries a Verlet error at dt 0.4 fs that the
+    float64 dynamics show too (see the bounds' comment)."""
+    import pyseqm_tpu_torch as pt
+    from pyseqm_tpu_torch.models.hipnn import make_hipnn_callable
+    setup = ml_setup("PM3", NMOL, torch.float32, 1.0e-5, 1.0e-4)
+    res, drift32 = ml_xl_run(
+        card, "30 xlbomd-ml-trained", *setup,
+        make_hipnn_callable(dtype=torch.float32, device=DEV),
+        TOL_DRIFT_HIPNN)
+    n = 256
+    drift64 = ml_xl_drift(*ml_setup("PM3", n, torch.float64, 1.0e-10,
+                                    1.0e-7),
+                          make_hipnn_callable(dtype=torch.float64,
+                                              device=DEV))
+    ddrift = (drift32[:n] - drift64).abs().max().item()
+    print(f"[30 drift f32 vs f64, {n} molecules] f64 max "
+          f"{drift64.max().item():.3e} eV, f32 max "
+          f"{drift32[:n].max().item():.3e} eV, per molecule max |d32 - d64| "
+          f"{ddrift:.2e} eV", flush=True)
+    check(ddrift <= TOL_DRIFT_F32, f"xlbomd-ml-trained: the f32 drift "
+          f"departs from the f64 drift by {ddrift} > {TOL_DRIFT_F32}")
+    res.update(drift_f64_max_eV=drift64.max().item(),
+               drift_f32_vs_f64_max_eV=ddrift)
+    runs = {}
+    for dtype, eps, sp2_eps in ((torch.float32, 1.0e-5, 1.0e-4),
+                                (torch.float64, 1.0e-10, 1.0e-7)):
+        const, tables, cfg, species, coords = ml_setup("PM3", n, dtype, eps,
+                                                       sp2_eps)
+        net = make_hipnn_callable(dtype=dtype, device=DEV)
+        with torch.no_grad():
+            p = net(species, coords)
+        f, out = pt.force(const, tables, cfg, species, coords, learned=net)
+        ft, outt = pt.force(const, tables, cfg, species, coords)
+        runs[dtype] = (p, f.double(), out.Hf.double(), ft.double(),
+                       outt.Hf.double())
+    # the float32 network inside the float64 force (the setup of the last,
+    # float64, run)
+    net32 = make_hipnn_callable(dtype=torch.float32, device=DEV)
+    fm, outm = pt.force(const, tables, cfg, species, coords,
+                        learned=lambda s, c: {k: v.double() for k, v in
+                                              net32(s, c.float()).items()})
+    (p32, f32, h32, ft32, ht32), (p64, f64, h64, ft64, ht64) = (
+        runs[torch.float32], runs[torch.float64])
+    perr = {k: (p32[k].double() - p64[k]).abs().max().item() for k in p64}
+    prel = max(perr[k] / p64[k].abs().max().item() for k in p64)
+    err = {"net_in_f64_dHf": (outm.Hf - h64).abs().max().item(),
+           "net_in_f64_dF": (fm - f64).abs().max().item(),
+           "dHf": (h32 - h64).abs().max().item(),
+           "dF": (f32 - f64).abs().max().item(),
+           "table_dHf": (ht32 - ht64).abs().max().item(),
+           "table_dF": (ft32 - ft64).abs().max().item()}
+    print(f"[30 accuracy f32 vs f64, {n} molecules] HIP-NN parameters max "
+          f"abs error " + " ".join(f"{k} {v:.2e}" for k, v in perr.items())
+          + f" (largest relative {prel:.2e}) | the f32 network in the f64 "
+          f"force: |dHf| {err['net_in_f64_dHf']:.2e} eV |dF| "
+          f"{err['net_in_f64_dF']:.2e} eV/A | the whole f32 path: |dHf| "
+          f"{err['dHf']:.2e} eV |dF| {err['dF']:.2e} eV/A | the PM3 table's "
+          f"f32 path: |dHf| {err['table_dHf']:.2e} eV |dF| "
+          f"{err['table_dF']:.2e} eV/A", flush=True)
+    check(bool(torch.isfinite(h32).all() and torch.isfinite(f32).all()),
+          "xlbomd-ml-trained: non-finite f32 results")
+    check(prel <= TOL_ML_PARAM, f"HIP-NN f32 parameters: relative error "
+          f"{prel} > {TOL_ML_PARAM}")
+    check(err["net_in_f64_dHf"] <= TOL_HF and err["net_in_f64_dF"] <= TOL_F,
+          f"the f32 HIP-NN in the f64 force: {err}")
+    check(err["dHf"] <= TOL_HF_PM3 and err["dF"] <= TOL_F_PM3,
+          f"the f32 HIP-NN PM3 path against f64: {err}")
+    res.update(param_max_abs_err=perr, param_max_rel_err=prel,
+               f32_vs_f64=err)
+    return res
+
+
+def phase_xlbomd_ml(card):
+    """``bench.py --config xlbomd-ml`` at full width: AM1 with the
+    random-init parameter network (models/ml.py, a generator seeded 7);
+    first bench.py's own check (learned against table Hf on 64 molecules,
+    bench.py:89-98), then the XL run."""
+    import pyseqm_tpu_torch as pt
+    from pyseqm_tpu_torch.models.ml import (init_param_model,
+                                            make_learned_callable)
+    const, tables, cfg, species, coords = ml_setup("AM1", NMOL, torch.float32,
+                                                   1.0e-5, 1.0e-4)
+    weights = init_param_model(tables, torch.Generator(DEV).manual_seed(7))
+    learned = make_learned_callable(weights, tables)
+    with torch.no_grad():
+        e_tab = pt.energy(const, tables, cfg, species[:64], coords[:64]).Hf
+        e_ml = pt.energy(const, tables, cfg, species[:64], coords[:64],
+                         learned=learned).Hf
+    d = (e_tab - e_ml).abs().max().item()
+    print(f"[31 xlbomd-ml] learned-vs-table max |dHf| = {d:.4f} eV over 64 "
+          f"molecules", flush=True)
+    check(bool(torch.isfinite(e_ml).all()) and d > 1.0e-4,
+          f"xlbomd-ml: the learned parameters had no effect (max dHf {d})")
+    res, _ = ml_xl_run(card, "31 xlbomd-ml", const, tables, cfg, species,
+                       coords, learned)
+    res["learned_vs_table_max_dHf"] = d
+    return res
+
+
+def phase_ml_hooks(card):
+    """The Kbeta and g_ss_nuc hooks on ML_HOOK_NMOL headline molecules
+    (AM1), on the packed class-segmented dense grid (hcore_dense_split,
+    SP2) and on the default flat layout (eigh): Kbeta = 1 reproduces the
+    hook-free Hf; a random Kbeta in [0.9, 1.1] (numpy seed 5) at float32
+    against float64; the table's g_ss as g_ss_nuc reproduces the default
+    Enuc; energy_xl at the converged density with both hooks gives
+    energy()'s Enuc.
+
+    The flat layout's Hcore and Fock builds sum per atom with index_add,
+    whose CUDA version adds in an order that changes from run to run: two
+    runs of one float32 SCF of these molecules differ by up to ~1.75e-4
+    eV there on an H100.  The identities and the Kbeta runs are computed
+    under torch.use_deterministic_algorithms (a deterministic index_add),
+    so each reading repeats from run to run; the run-to-run difference of
+    the ordinary mode is printed beside them."""
+    import pyseqm_tpu_torch as pt
+    from pyseqm_tpu_torch.models.xlbomd import energy_xl
+    from pyseqm_tpu_torch.ops.density import static_pack_mat
+    from pyseqm_tpu_torch.ops import eigh_kernel
+    n = ML_HOOK_NMOL
+    kernels_reset()
+    out = {}
+    rng = np.random.default_rng(5)
+    kb_np = rng.uniform(0.9, 1.1, (n, MOLSIZE * (MOLSIZE - 1) // 2, 4))
+    for layout, pack in (("packed", True), ("flat", False)):
+        runs = {}
+        for dtype, eps, sp2_eps in ((torch.float32, 1.0e-5, 1.0e-4),
+                                    (torch.float64, 1.0e-10, 1.0e-7)):
+            const, tables, cfg, species, coords = headline_setup(
+                n, dtype, eps, sp2_eps, use_sp2=pack, pack=pack)
+            kb = torch.tensor(kb_np, dtype=dtype, device=DEV)
+            with deterministic():
+                f, o = pt.force(const, tables, cfg, species, coords,
+                                learned={"Kbeta": kb})
+            runs[dtype] = (f.double(), o.Hf.double())
+        # float32 from here on: the setup of the last float32 run
+        const, tables, cfg, species, coords = headline_setup(
+            n, torch.float32, 1.0e-5, 1.0e-4, use_sp2=pack, pack=pack)
+        kb = torch.tensor(kb_np, dtype=torch.float32, device=DEV)
+        with torch.no_grad():
+            again = pt.energy(const, tables, cfg, species, coords)
+            with deterministic():
+                base = pt.energy(const, tables, cfg, species, coords)
+                ones = pt.energy(const, tables, cfg, species, coords,
+                                 learned={"Kbeta": torch.ones_like(kb)})
+                gss = pt.energy(
+                    const, tables, cfg, species, coords,
+                    learned={"g_ss_nuc": tables["g_ss"][species]})
+            hooks = {"Kbeta": kb, "g_ss_nuc": tables["g_ss"][species]
+                     * (1.0 + 0.05 * torch.cos(coords[..., 0]))}
+            full = pt.energy(const, tables, cfg, species, coords,
+                             learned=hooks)
+            P = full.P
+            K = cfg.scf.pack_heavy
+            if pack:
+                P = static_pack_mat(P, K, pt.packed_solver_size(K, MOLSIZE))
+            xl = energy_xl(const, tables, cfg, species, coords, P,
+                           learned=hooks, packed_io=pack)
+        (f32, h32), (f64, h64) = runs[torch.float32], runs[torch.float64]
+        e = {"ones_dHf": (ones.Hf - base.Hf).abs().max().item(),
+             "rerun_dHf": (again.Hf - base.Hf).abs().max().item(),
+             "kbeta_f32_dHf": (h32 - h64).abs().max().item(),
+             "kbeta_f32_dF": (f32 - f64).abs().max().item(),
+             "kbeta_shift_Hf": (h64 - base.Hf.double()).abs().max().item(),
+             "gss_dEnuc": (gss.Enuc - base.Enuc).abs().max().item(),
+             "xl_dEnuc": (xl.Enuc - full.Enuc).abs().max().item(),
+             "hook_shift_Enuc": (full.Enuc - base.Enuc).abs().max().item()}
+        print(f"[32 ml-hooks {layout}] {n} molecules AM1 f32: Kbeta = 1 "
+              f"|dHf| {e['ones_dHf']:.2e} eV (deterministic mode; the "
+              f"ordinary mode's run-to-run |dHf| {e['rerun_dHf']:.2e} eV) | "
+              f"random Kbeta (shifts Hf up "
+              f"to {e['kbeta_shift_Hf']:.3f} eV) f32 vs f64 |dHf| "
+              f"{e['kbeta_f32_dHf']:.2e} eV |dF| {e['kbeta_f32_dF']:.2e} "
+              f"eV/A | table g_ss as g_ss_nuc |dEnuc| {e['gss_dEnuc']:.2e} "
+              f"eV | energy_xl vs energy Enuc with both hooks (which shift "
+              f"Enuc up to {e['hook_shift_Enuc']:.3f} eV) |dEnuc| "
+              f"{e['xl_dEnuc']:.2e} eV", flush=True)
+        check(e["ones_dHf"] <= TOL_HF, f"ml-hooks {layout}: Kbeta = 1 {e}")
+        check(e["kbeta_f32_dHf"] <= TOL_HF and e["kbeta_f32_dF"] <= TOL_F,
+              f"ml-hooks {layout}: Kbeta f32 against f64 {e}")
+        check(e["kbeta_shift_Hf"] > 1.0e-2 and e["hook_shift_Enuc"] > 1.0e-2,
+              f"ml-hooks {layout}: the hooks had no effect {e}")
+        check(e["gss_dEnuc"] <= TOL_ENUC and e["xl_dEnuc"] <= TOL_ENUC,
+              f"ml-hooks {layout}: Enuc {e}")
+        out[layout] = e
+    K2_BY_N["ml_hooks"] = dict(eigh_kernel.launches_by_n)
+    nk = kernel_counts()
+    print(f"[32 ml-hooks] launches K1 {nk[0]} K2 {nk[1]} K3 fwd {nk[2]} bwd "
+          f"{nk[3]}", flush=True)
+    check(all(c > 0 for c in nk), f"ml-hooks launches {nk}")
+    out.update(k1_launches=nk[0], k2_launches=nk[1], k3_launches=nk[2:])
+    return out
+
+
+def ml_grad_step(dtype, eps, target, n):
+    """sum((Hf - target)^2) of PM3 with the HIP-NN model on the first n
+    headline molecules (eigh SCF, packed, backward mode 1) and its
+    gradient to every weight tensor of the network."""
+    import pyseqm_tpu_torch as pt
+    from pyseqm_tpu_torch.models.hipnn import make_hipnn_callable
+    const, tables, cfg, species, coords = ml_setup(
+        "PM3", n, dtype, eps, 1.0e-4, use_sp2=False, backward=1)
+    net = make_hipnn_callable(dtype=dtype, device=DEV)
+    names = list(net.w)
+    for k in names:
+        net.w[k].requires_grad_(True)
+    out = pt.energy(const, tables, cfg, species, coords, learned=net)
+    loss = ((out.Hf - target.to(dtype)) ** 2).sum()
+    grads = torch.autograd.grad(loss, [net.w[k] for k in names])
+    return loss.detach(), dict(zip(names, grads))
+
+
+def phase_ml_grad(card):
+    """The gradient of sum((Hf - target)^2) to every HIP-NN weight through
+    the SCF adjoint (backward mode 1) on ML_HOOK_NMOL headline molecules,
+    the target the PM3 table's Hf: float32 on the card (timed after a
+    warm-up) against float64 on the card, relative error per weight
+    tensor (the contract of models/ml.py: gradient flow into network
+    weights)."""
+    import pyseqm_tpu_torch as pt
+    from pyseqm_tpu_torch import scf
+    from pyseqm_tpu_torch.ops import eigh_kernel
+    n = ML_HOOK_NMOL
+    const, tables, cfg, species, coords = ml_setup(
+        "PM3", n, torch.float64, 1.0e-10, 1.0e-7, use_sp2=False)
+    with torch.no_grad():
+        target = pt.energy(const, tables, cfg, species, coords).Hf
+    ml_grad_step(torch.float32, 1.0e-5, target, n)          # warm-up
+    sync()
+    kernels_reset()
+    scf.adjoint_iterations = scf.backward_failures = 0
+    t0 = time.perf_counter()
+    l32, g32 = ml_grad_step(torch.float32, 1.0e-5, target, n)
+    sync()
+    dt = time.perf_counter() - t0
+    iters, fails = scf.adjoint_iterations, scf.backward_failures
+    l64, g64 = ml_grad_step(torch.float64, 1.0e-10, target, n)
+    K2_BY_N["ml_grad"] = dict(eigh_kernel.launches_by_n)
+    nk = kernel_counts()
+    rel = {k: ((g32[k].double() - g64[k]).abs().max()
+               / g64[k].abs().max()).item() for k in g64}
+    finite = all(bool(torch.isfinite(g).all()) for g in g32.values())
+    worst = max(rel, key=rel.get)
+    print(f"[33 ml-grad] {n} molecules PM3 + HIP-NN, eigh packed, backward "
+          f"1: f32 loss and gradient to {len(g32)} weight tensors in "
+          f"{dt:.3f} s ({n / dt:.1f} molecules/s) on {card} | adjoint "
+          f"iterations {iters}, backward failures {fails} | loss f32 "
+          f"{l32.item():.6f} f64 {l64.item():.6f} | relative error per "
+          f"tensor max {rel[worst]:.2e} ({worst}) median "
+          f"{float(np.median(list(rel.values()))):.2e} | finite {finite} | "
+          f"launches K2 {nk[1]} K3 fwd {nk[2]} bwd {nk[3]}", flush=True)
+    print("[33 ml-grad relative error] " + " ".join(
+        f"{k} {v:.2e}" for k, v in rel.items()), flush=True)
+    check(finite, "ml-grad: non-finite float32 gradients")
+    check(fails == 0, f"ml-grad: {fails} backward failures")
+    check(rel[worst] <= TOL_ML_GRAD, f"ml-grad: {worst} relative error "
+          f"{rel[worst]} > {TOL_ML_GRAD}")
+    check(nk[1] > 0 and nk[2] > 0 and nk[3] > 0, f"ml-grad launches {nk}")
+    return {"molecules_per_s": n / dt, "s": dt, "adjoint_iterations": iters,
+            "backward_failures": fails, "loss_f32": l32.item(),
+            "loss_f64": l64.item(), "relative_error": rel,
+            "k1_launches": nk[0], "k2_launches": nk[1],
+            "k3_launches": nk[2:]}
+
+
+def resume_check(label, build, steps, path, with_generator):
+    """``steps`` steps straight from a fresh driver's initial state against
+    steps // 2, a checkpoint written to ``path`` (with the driver's
+    generator), a second driver built afresh (its generator seeded
+    elsewhere) and loaded from the file, then the other half.  Returns the
+    fields that are not bit for bit equal, with their largest
+    difference."""
+    from pyseqm_tpu_torch.utils.checkpoint import (_leaves, load_state,
+                                                   save_state)
+    md, state = build(0)
+    for _ in range(steps // 2):
+        state, _ = md.step(md.species, state)
+    save_state(path, state, generator=getattr(md, "generator", None)
+               if with_generator else None)
+    for _ in range(steps - steps // 2):
+        state, _ = md.step(md.species, state)
+    md2, like = build(99)
+    resumed = load_state(path, like, generator=getattr(md2, "generator",
+                                                       None))
+    for _ in range(steps - steps // 2):
+        resumed, _ = md2.step(md2.species, resumed)
+    sync()
+    diff = {}
+    for (p, a), (_, b) in zip(_leaves(state), _leaves(resumed)):
+        if torch.is_tensor(a):
+            if not torch.equal(a, b):
+                diff[p] = (a.double() - b.double()).abs().max().item()
+        elif a != b:
+            diff[p] = abs(a - b)
+    print(f"[34 resume {label}] {steps} steps straight against {steps // 2} "
+          f"+ checkpoint + a fresh driver + {steps - steps // 2}: "
+          + ("every field bit for bit equal" if not diff else
+             f"differing fields {diff}"), flush=True)
+    return diff
+
+
+def phase_resume(card):
+    """Checkpoint and resume at full width: the headline XL-SP2 path and
+    the Langevin bomd path (phase 24's configuration, with the generator's
+    state); then run(thermo=2, dump=3) writing xyz frames of 2 molecules,
+    timed by a Timing."""
+    import tempfile
+    from pyseqm_tpu_torch.drivers.md import LangevinDynamics, MDConfig
+    from pyseqm_tpu_torch.drivers.xlbomd import XLBOMD
+    from pyseqm_tpu_torch.utils.timing import Timing
+    kernels_reset()
+    xl_setup = headline_setup(NMOL, torch.float32, 1.0e-5, 1.0e-4)
+    bomd = bomd_setup(NMOL, torch.float32)
+
+    def build_xl(seed):
+        const, tables, cfg, species, coords = xl_setup
+        md = XLBOMD(const, tables, cfg, MDConfig(timestep=0.4), k=5)
+        md.species = species
+        return md, md.initialize(species, coords,
+                                 velocities=torch.zeros_like(coords),
+                                 initial_force=False)
+
+    def build_langevin(seed):
+        const, tables, cfg, species, coords = bomd
+        md = LangevinDynamics(
+            const, tables, cfg, MDConfig(timestep=0.4, damp=20.0,
+                                         temperature=300.0),
+            generator=torch.Generator(DEV).manual_seed(seed))
+        md.species = species
+        return md, md.initialize(species, coords, Temp=300.0)
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["xlbomd_differing"] = resume_check(
+            "xlbomd-sp2", build_xl, RESUME_STEPS,
+            os.path.join(tmp, "xl.npz"), False)
+        out["langevin_differing"] = resume_check(
+            "bomd langevin", build_langevin, RESUME_STEPS,
+            os.path.join(tmp, "bomd.npz"), True)
+        md, state = build_xl(0)
+        md.timing = Timing()
+        prefix = os.path.join(tmp, "dump")
+        md.run(md.species, state, steps=7, thermo=2, dump=3,
+               dump_prefix=prefix, molids=(0, 1), log=False)
+        frames = {}
+        for mol in (0, 1):
+            with open(f"{prefix}.{mol}.xyz") as f:
+                lines = f.read().strip().splitlines()
+            natom = int(lines[0])
+            frames[mol] = (len(lines) // (natom + 2),
+                           [ln.split()[1].rstrip(",")
+                            for ln in lines[1::natom + 2]],
+                           len(lines[2].split()))
+    summ = md.timing.summary()
+    nk = kernel_counts()
+    print(f"[34 resume dump] run(steps=7, thermo=2, dump=3), molecules 0 "
+          f"and 1: (frames, their steps, columns) {frames} | Timing {summ}",
+          flush=True)
+    print(f"[34 resume] launches K1 {nk[0]} K3 fwd {nk[2]} bwd {nk[3]}",
+          flush=True)
+    check(not out["xlbomd_differing"] and not out["langevin_differing"],
+          f"resume: not bit for bit {out}")
+    check(all(v == (2, ["3", "6"], 11) for v in frames.values()),
+          f"resume: the dump wrote {frames}, expected the frames of steps 3 "
+          "and 6, 11 columns, per molecule")
+    check(summ.get("MD", {}).get("count") == 4, f"resume: Timing {summ}")
+    check(nk[0] > 0 and nk[2] > 0 and nk[3] > 0, f"resume launches {nk}")
+    out.update(frames={str(k): v[0] for k, v in frames.items()},
+               timing=summ, k1_launches=nk[0], k3_launches=nk[2:])
     return out
 
 
@@ -2558,17 +3100,39 @@ def main():
     with Phase("29 row3 pin"):
         pin = phase_row3_pin(card)
     torch.cuda.empty_cache()
+    with Phase("30 xlbomd-ml-trained"):
+        ml_trained = phase_xlbomd_ml_trained(card)
+    torch.cuda.empty_cache()
+    with Phase("31 xlbomd-ml"):
+        ml_random = phase_xlbomd_ml(card)
+    torch.cuda.empty_cache()
+    with Phase("32 ml-hooks"):
+        hooks = phase_ml_hooks(card)
+    torch.cuda.empty_cache()
+    with Phase("33 ml-grad"):
+        ml_grad = phase_ml_grad(card)
+    torch.cuda.empty_cache()
+    with Phase("34 resume"):
+        resume = phase_resume(card)
+    torch.cuda.empty_cache()
     k1_paths = {"xlbomd_sp2": launches, "bomd": bomd["k1_launches"],
                 "nvt_langevin": nvt["langevin"]["k1_launches"],
                 "nvt_nose_hoover": nvt["nose_hoover"]["k1_launches"],
                 "opt": opt["k1_launches"], "opt_sd": opt_sd["k1_launches"],
-                "scf_row3": row3["k1_launches"]}
+                "scf_row3": row3["k1_launches"],
+                "xlbomd_ml_trained": ml_trained["k1_launches"],
+                "xlbomd_ml": ml_random["k1_launches"],
+                "ml_hooks": hooks["k1_launches"],
+                "resume": resume["k1_launches"]}
     for path, n in k1_paths.items():
         check(n > 0, f"K1 was not launched on the {path} path")
     by_path.update(scf_adjoint=adj["k2_launches"],
                    scf_adjoint_flat=adj_flat["k2_launches"],
-                   hessian=hess["k2_launches"])
-    for path in ("scf_adjoint", "scf_adjoint_flat", "hessian"):
+                   hessian=hess["k2_launches"],
+                   ml_hooks=hooks["k2_launches"],
+                   ml_grad=ml_grad["k2_launches"])
+    for path in ("scf_adjoint", "scf_adjoint_flat", "hessian", "ml_hooks",
+                 "ml_grad"):
         check(by_path[path] > 0, f"K2 was not launched on the {path} path")
 
     k3_paths = {"xlbomd_sp2": k3_main, "scf_eigh": scf_eigh["k3_launches"],
@@ -2585,13 +3149,19 @@ def main():
                 "nvt_nose_hoover": nvt["nose_hoover"]["k3_launches"],
                 "opt": opt["k3_launches"], "opt_sd": opt_sd["k3_launches"],
                 "scf_row3": row3["k3_launches"],
-                "row3_pin": pin["k3_launches"]}
+                "row3_pin": pin["k3_launches"],
+                "xlbomd_ml_trained": ml_trained["k3_launches"],
+                "xlbomd_ml": ml_random["k3_launches"],
+                "ml_hooks": hooks["k3_launches"],
+                "ml_grad": ml_grad["k3_launches"],
+                "resume": resume["k3_launches"]}
     for path, (nf, nb) in k3_paths.items():
         check(nf > 0, f"K3 forward was not launched on the {path} path")
     for path in ("xlbomd_sp2", "eig_true", "xlbomd_eigh", "nanostar_packed",
                  "nanostar_dense", "scf_adjoint", "scf_adjoint_flat",
                  "hessian", "bomd", "nvt_langevin", "nvt_nose_hoover", "opt",
-                 "opt_sd", "row3_pin"):
+                 "opt_sd", "row3_pin", "xlbomd_ml_trained", "xlbomd_ml",
+                 "ml_hooks", "ml_grad", "resume"):
         check(k3_paths[path][1] > 0, f"K3 backward was not launched on the "
               f"{path} path")
     xch = (1, 3, 2, 4)
@@ -2620,9 +3190,13 @@ def main():
           "ptxas": ptxas["eigh"],
           "phases": ["8 parity", "9 scf-eigh", "10 eig=True",
                      "11 xlbomd-eigh", "12 timing", "14 flat default",
-                     "19 scf-adjoint", "20 hessian"]}
+                     "19 scf-adjoint", "20 hessian", "32 ml-hooks",
+                     "33 ml-grad"]}
     k1["launches"] = sum(k1_paths.values())
     k1["launches_by_path"] = k1_paths
+    k1["phases"] += ["24 bomd", "25 nvt", "26 opt", "27 opt-sd",
+                     "28 scf-row3", "30 xlbomd-ml-trained", "31 xlbomd-ml",
+                     "32 ml-hooks", "34 resume"]
     k1["ptxas"] = ptxas["sp2"]
     k3f = k3_entry("wapply_fwd", "fwd", "tools/wapply_pallas.py:181",
                    {p: n[0] for p, n in k3_paths.items()}, k3_t, worst3,
@@ -2650,7 +3224,10 @@ def main():
                       "scf_adjoint_flat": adj_flat, "hessian": hess,
                       "flat_split": split, "convergers": convergers,
                       "bomd": bomd, "nvt": nvt, "opt": opt, "opt_sd": opt_sd,
-                      "scf_row3": row3, "row3_pin": pin}),
+                      "scf_row3": row3, "row3_pin": pin,
+                      "xlbomd_ml_trained": ml_trained,
+                      "xlbomd_ml": ml_random, "ml_hooks": hooks,
+                      "ml_grad": ml_grad, "resume": resume}),
           flush=True)
     print(json.dumps({"kernels": [k1, k2, k3f, k3b]}), flush=True)
     print(card_line(), flush=True)

@@ -8,10 +8,14 @@ grid, the class-segmented flat pair list, or the class-segmented dense
 grid with the static packed electronic state; densities from the one-sided
 Jacobi eigensolver (csrc/eigh.cu) or SP2 purification (csrc/sp2.cu), and
 every Fock build's two-electron contraction from the fused apply
-(csrc/wapply.cu), all hand-written CUDA kernels.  Entry
-points run on CUDA unless the caller passes device="cpu".  The package
-imports torch and numpy only.
+(csrc/wapply.cu), all hand-written CUDA kernels; learned per-atom
+parameters from a network (models/ml.py) or the reference's trained
+HIP-NN model (models/hipnn.py), with the Kbeta and g_ss_nuc hooks; and
+checkpoints, trajectory dumps, sanitizers and phase timing (utils/).
+Entry points run on CUDA unless the caller passes device="cpu".  The
+package imports torch and numpy only.
 """
+from .compat import from_seqm_parameters  # noqa: F401
 from .constants import (A0, EV, Constants, constants_from_numpy,  # noqa: F401
                         disable_tf32, make_constants)
 from .models.energy import (EnergyOutput, HamiltonianOutput,  # noqa: F401

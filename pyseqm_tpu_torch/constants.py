@@ -25,6 +25,14 @@ LENGTH_CONVERSION_FACTOR = 1.0 / A0  # Angstrom -> Bohr
 # cf. reference constants.py:16
 OVERLAP_CUTOFF = 40.0
 
+# element symbols by atomic number (xyz input and trajectory dumps)
+ELEMENT_LABELS = [
+    "0",
+    "H", "He",
+    "Li", "Be", "B", "C", "N", "O", "F", "Ne",
+    "Na", "Mg", "Al", "Si", "P", "S", "Cl", "Ar",
+]
+
 MAX_Z = 18  # element tables below cover H..Ar (rows 1-3)
 
 # fmt: off

@@ -4,7 +4,9 @@ PyTorch counterpart of ``pyseqm_tpu/drivers/md.py`` (cf. the reference
 seqm/MolecularDynamics.py:158-432): velocity Verlet around an SCF force
 call, the velocity-rescale and energy-shift thermostats, the Langevin and
 Nose-Hoover chain NVT drivers, observables, and a ``run`` loop with thermo
-lines between chunks of steps.
+lines between chunks of steps and extended-xyz frames every ``dump``
+steps (``utils/io.py``); a ``utils.timing.Timing`` given to a driver
+times each chunk.
 
 Units: Angstrom, fs, eV, g/mol, Kelvin (same as the reference).
 """
@@ -17,6 +19,8 @@ import torch
 
 from ..constants import Constants
 from ..models.energy import SEQMConfig, _species_tensor, check_species, force
+from ..utils import io as xyz_io
+from ..utils.timing import timed
 
 # Unit conversions (MolecularDynamics.py:438-490):
 # 1 (eV/Angstrom)/(g/mol) = 0.009648... Angstrom/fs^2
@@ -149,11 +153,14 @@ class MolecularDynamics:
     """NVE velocity-Verlet driver (cf. Molecular_Dynamics_Basic).
 
     Runs on the device of ``const``; ``charges`` (nmol,) are the net
-    molecular charges threaded into every energy and force evaluation.
+    molecular charges threaded into every energy and force evaluation;
+    ``timing`` (a utils.timing.Timing) records each ``run`` chunk as phase
+    "MD" (cf. Constants.do_timing, reference constants.py:133-140).
     """
 
     def __init__(self, const: Constants, tables, seqm_cfg: SEQMConfig,
-                 md_cfg: MDConfig = MDConfig(), learned=None, charges=None):
+                 md_cfg: MDConfig = MDConfig(), learned=None, charges=None,
+                 timing=None):
         self.const = const
         self.tables = tables
         self.seqm_cfg = seqm_cfg
@@ -163,6 +170,7 @@ class MolecularDynamics:
         self.charges = (None if charges is None else
                         torch.as_tensor(charges, dtype=torch.long,
                                         device=self.device))
+        self.timing = timing
 
     def _charges_arg(self, charges):
         return self.charges if charges is None else charges
@@ -249,21 +257,33 @@ class MolecularDynamics:
                                    E0=Epot + Ek)
 
     def run(self, species, state, steps: int, thermo: int = 1,
+            dump: Optional[int] = None, dump_prefix: str = "md",
             molids=(0,), log: bool = True):
         """Drive ``steps`` steps in chunks of ``thermo``, printing a thermo
-        line for ``molids`` after each chunk and removing COM motion at the
-        end of a chunk that crossed a ``remove_com`` boundary
+        line for ``molids`` after each chunk, appending an extended-xyz
+        frame of each of ``molids`` to ``{dump_prefix}.{mol}.xyz`` at every
+        step that is a multiple of ``dump`` (with the forces of that step;
+        written after the chunk), and removing COM motion at the end of a
+        chunk that crossed a ``remove_com`` boundary
         (cf. MolecularDynamics.py:291-320)."""
         species = self._species(species)
         if log:
             print("Step, Temp, E(kinetic), E(potential), E(total), "
                   "dipole(x,y,z)")
         rc = self.md_cfg.remove_com
+        mass = atom_masses(self.const, species)
         done = 0
         while done < steps:
             n = min(thermo, steps - done)
-            for _ in range(n):
-                state, obs = self.step(species, state)
+            frames = []
+            with timed(self.timing, "MD", self.device):
+                for k in range(done + 1, done + n + 1):
+                    state, obs = self.step(species, state)
+                    if dump and k % dump == 0:
+                        frames.append((state, obs))
+            for st, ob in frames:
+                xyz_io.dump_frame(dump_prefix, species, st, ob, molids,
+                                  forces=st.acc * mass / ACC_SCALE)
             prev, done = done, done + n
             if log:
                 cols = " ".join(
@@ -326,8 +346,9 @@ class NoseHooverDynamics(MolecularDynamics):
     CHAIN = 2
 
     def __init__(self, const, tables, seqm_cfg, md_cfg=MDConfig(),
-                 tau: float = 20.0, learned=None, charges=None):
-        super().__init__(const, tables, seqm_cfg, md_cfg, learned, charges)
+                 tau: float = 20.0, learned=None, charges=None, timing=None):
+        super().__init__(const, tables, seqm_cfg, md_cfg, learned, charges,
+                         timing)
         self.tau = tau  # thermostat time constant (fs)
 
     def initialize(self, species, coordinates, velocities=None,
@@ -386,8 +407,9 @@ class LangevinDynamics(MolecularDynamics):
 
     def __init__(self, const, tables, seqm_cfg, md_cfg=MDConfig(),
                  learned=None, charges=None,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__(const, tables, seqm_cfg, md_cfg, learned, charges)
+                 generator: Optional[torch.Generator] = None, timing=None):
+        super().__init__(const, tables, seqm_cfg, md_cfg, learned, charges,
+                         timing)
         self.generator = generator
 
     def initialize(self, species, coordinates, velocities=None,

@@ -6,7 +6,8 @@ Geometry_Optimization_SD(_LS), seqm/MolecularDynamics.py:5-156) and the
 warm batched L-BFGS, the production optimizer (the batched counterpart of
 the reference's scipy L-BFGS-B workflow, examples/opt.py:63-79).  Every
 energy and gradient evaluation threads the last converged density in as
-the SCF's initial guess.
+the SCF's initial guess.  A ``utils.timing.Timing`` given as ``timing``
+records the work between two host reads as phase "optimize".
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from ..models.energy import SEQMConfig, _packed_layout, _species_tensor, energy
 from ..ops.density import static_pack_mat
 from ..scf import init_density
 from ..system import make_system
+from ..utils.timing import timed
 
 _OPTAX_ROUTES = ("the optax-routed L-BFGS (chunk=0 or an explicit "
                  "linesearch) is not ported yet (M16b); use chunk > 0 with "
@@ -70,6 +72,7 @@ def geometry_optimize_sd(
     const: Constants, tables, cfg: SEQMConfig, species, coordinates,
     alpha: float = 0.01, force_tol: float = 1.0e-4, max_evl: int = 1000,
     learned=None, log: bool = False, chunk: int = 0, charges=None,
+    timing=None,
 ):
     """Fixed-step steepest descent; returns (coords, max|F|, dE).
 
@@ -93,18 +96,19 @@ def geometry_optimize_sd(
         ferr = dE = None
         for c in range(-(-max_evl // chunk)):
             first = c == 0
-            for _ in range(chunk):
-                frc, Pn, L = evaluate(coordinates, P)
-                ferr = frc.abs().max()
-                Lmean = L.sum() / L.shape[0]
-                dE = torch.full_like(Lmean, float("inf")) if first \
-                    else Lmean - Lprev
-                stop = done | (ferr <= force_tol)
-                coordinates = torch.where(done, coordinates,
-                                          coordinates + alpha * frc)
-                P = torch.where(done, P, Pn)
-                nit = nit + (~done).long()
-                done, Lprev, first = stop, Lmean, False
+            with timed(timing, "optimize", const.device):
+                for _ in range(chunk):
+                    frc, Pn, L = evaluate(coordinates, P)
+                    ferr = frc.abs().max()
+                    Lmean = L.sum() / L.shape[0]
+                    dE = torch.full_like(Lmean, float("inf")) if first \
+                        else Lmean - Lprev
+                    stop = done | (ferr <= force_tol)
+                    coordinates = torch.where(done, coordinates,
+                                              coordinates + alpha * frc)
+                    P = torch.where(done, P, Pn)
+                    nit = nit + (~done).long()
+                    done, Lprev, first = stop, Lmean, False
             if log:
                 print(f"{int(nit)} {float(ferr):e} {float(dE):e}")
             if bool(done):
@@ -114,7 +118,8 @@ def geometry_optimize_sd(
     Lold = None
     ferr = eerr = float("inf")
     for i in range(max_evl):
-        frc, P, L = evaluate(coordinates, P)
+        with timed(timing, "optimize", const.device):
+            frc, P, L = evaluate(coordinates, P)
         coordinates = coordinates + alpha * frc
         ferr = float(frc.abs().max())
         eerr = (float((L - Lold).sum() / L.shape[0]) if Lold is not None
@@ -135,12 +140,14 @@ LS_CANDIDATES = (0.5, 0.75, 1.0, 1.25, 1.5)
 def geometry_optimize_sd_ls(
     const: Constants, tables, cfg: SEQMConfig, species, coordinates,
     alpha: float = 0.01, force_tol: float = 1.0e-4, max_evl: int = 1000,
-    learned=None, log: bool = False, charges=None,
+    learned=None, log: bool = False, charges=None, timing=None,
 ):
     """Steepest descent with a 5-candidate per-molecule line search
     (cf. Geometry_Optimization_SD_LS.onestep, MolecularDynamics.py:28-41):
     the five trial geometries of every molecule run as one energy call on
-    a 5 x nmol batch.  Returns (coords, max|F|)."""
+    a 5 x nmol batch, with the learned parameters (a dict's tensors
+    repeated over the candidates; the JAX package's trial energies drop
+    ``learned``).  Returns (coords, max|F|)."""
     species, coordinates, charges = _inputs(const, species, coordinates,
                                             charges)
     nmol = species.shape[0]
@@ -149,26 +156,31 @@ def geometry_optimize_sd_ls(
                         device=const.device)
     species5 = species.repeat(ncand, 1)
     charges5 = None if charges is None else charges.repeat(ncand)
+    learned5 = learned if learned is None or callable(learned) else {
+        k: v.repeat((ncand,) + (1,) * (v.dim() - 1))
+        for k, v in learned.items()}
     P = _initial_density(const, cfg, species, coordinates, charges)
     alphas = torch.full((nmol,), alpha, dtype=coordinates.dtype,
                         device=const.device)
     rows = torch.arange(nmol, device=const.device)
     ferr = float("inf")
     for i in range(max_evl):
-        Hf, g, P = _value_and_grad(const, tables, cfg, species, coordinates,
-                                   P, learned, charges)
-        frc = -g
-        trial = alphas[:, None] * cand[None, :]               # (nmol, 5)
-        xs = coordinates[None] + frc[None] * trial.T[:, :, None, None]
-        with torch.no_grad():
-            out = energy(const, tables, cfg, species5,
-                         xs.reshape((ncand * nmol,) + coordinates.shape[1:]),
-                         P0=P.repeat(ncand, 1, 1),
-                         charges=charges5)
-        eng = out.Etot.reshape(ncand, nmol)
-        best = torch.argmin(eng, dim=0)
-        alphas = torch.clamp(trial[rows, best], min=1.0e-3)
-        coordinates = coordinates + alphas[:, None, None] * frc
+        with timed(timing, "optimize", const.device):
+            Hf, g, P = _value_and_grad(const, tables, cfg, species,
+                                       coordinates, P, learned, charges)
+            frc = -g
+            trial = alphas[:, None] * cand[None, :]           # (nmol, 5)
+            xs = coordinates[None] + frc[None] * trial.T[:, :, None, None]
+            with torch.no_grad():
+                out = energy(const, tables, cfg, species5,
+                             xs.reshape((ncand * nmol,)
+                                        + coordinates.shape[1:]),
+                             learned=learned5, P0=P.repeat(ncand, 1, 1),
+                             charges=charges5)
+            eng = out.Etot.reshape(ncand, nmol)
+            best = torch.argmin(eng, dim=0)
+            alphas = torch.clamp(trial[rows, best], min=1.0e-3)
+            coordinates = coordinates + alphas[:, None, None] * frc
         ferr = float(frc.abs().max())
         if log:
             print(f"{i + 1} {ferr:e}")
@@ -330,7 +342,7 @@ def geometry_optimize_lbfgs(
     const: Constants, tables, cfg: SEQMConfig, species, coordinates,
     force_tol: float = 1.0e-4, max_evl: int = 300, learned=None,
     log: bool = False, linesearch: Optional[str] = None, chunk: int = 0,
-    charges=None,
+    charges=None, timing=None,
 ):
     """Batched L-BFGS: ``chunk > 0`` with ``linesearch=None`` runs the
     warm batched L-BFGS (:func:`make_lbfgs_warm`), ``chunk`` iterations
@@ -345,7 +357,8 @@ def geometry_optimize_lbfgs(
     state = init(coordinates)
     ferr = torch.tensor(float("inf"))
     for _ in range(-(-max_evl // chunk)):
-        state, value, ferr = run(state)
+        with timed(timing, "optimize", const.device):
+            state, value, ferr = run(state)
         if log:
             print(f"{state.nit} {float(ferr):e} {float(value.sum()):e}")
         if bool(state.done.all()):

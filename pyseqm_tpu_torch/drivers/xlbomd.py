@@ -62,8 +62,9 @@ class XLBOMD(MolecularDynamics):
 
     def __init__(self, const: Constants, tables, seqm_cfg: SEQMConfig,
                  md_cfg: MDConfig = MDConfig(), k: int = 5, cc: float = 1.0,
-                 learned=None, charges=None):
-        super().__init__(const, tables, seqm_cfg, md_cfg, learned, charges)
+                 learned=None, charges=None, timing=None):
+        super().__init__(const, tables, seqm_cfg, md_cfg, learned, charges,
+                         timing)
         kappa, alpha, cs = XL_COEFFS[k]
         self.k = k
         self.m = k + 1

@@ -10,7 +10,12 @@ class-segmented flat pair list (``pack_pairs`` with
 ``dense_pair_grid=False``); plus the orbital energies and per-MO atomic
 charges of ``eig=True``.  The density differentiates by the SCF's backward
 mode (``SCFConfig.backward``): constant (Hellmann-Feynman), the recursive
-adjoint, or the unrolled fixed point.
+adjoint, or the unrolled fixed point.  Learned parameters come as a dict
+or a callable (``models/ml.py``, ``models/hipnn.py``), with two hooks
+beside the table's names: ``Kbeta`` (nmol, NP, 4), per-pair factors of the
+resonance blocks in canonical ``pair_index(A)`` order, and ``g_ss_nuc``
+(nmol, A), the per-atom gamma of the core-core term (cf. the reference
+basics.py:279-327).
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..constants import Constants, disable_tf32, make_constants
+from ..constants import EV, Constants, disable_tf32, make_constants
 from ..ops.density import (orbital_permutation, packed_solver_size,
                            static_unpack_mat, sym_eig)
 from ..ops.energy import (assemble_energies, elec_energy_isolated_atom,
@@ -34,7 +39,8 @@ from ..ops.matrix import grid_to_mat
 from ..ops.tetci import from_grid
 from ..parameters import gather_atom_parameters, load_element_tables
 from ..scf import SCFConfig, scf_solve
-from ..system import System, make_system, validate
+from ..system import (System, make_system, pair_packed_from_canonical,
+                      validate)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,12 +116,26 @@ def _atom_parameters(tables, method, sys: System,
                      coordinates) -> Dict[str, torch.Tensor]:
     if callable(learned):
         learned = learned(sys.species, coordinates)
-    p = gather_atom_parameters(tables, method, sys.species, learned)
-    for hook in ("Kbeta", "g_ss_nuc"):
-        if hook in p:
-            raise NotImplementedError(f"the learned {hook} hook is not "
-                                      "ported yet")
-    return p
+    return gather_atom_parameters(tables, method, sys.species, learned)
+
+
+def _learned_hooks(p: Dict[str, torch.Tensor]):
+    """(Kbeta, g_ss_nuc), each None when absent, popped from the per-atom
+    parameter dict ``p``."""
+    return p.pop("Kbeta", None), p.pop("g_ss_nuc", None)
+
+
+def _hook_gamma(sys: System, g_ss_nuc: torch.Tensor) -> torch.Tensor:
+    """The core-core term's (ss|ss) gamma per flat pair from the learned
+    per-atom ``g_ss_nuc`` (cf. basics.py:321-327).  Padding lanes (g = 0
+    there) are sanitized before the division, so gradients stay finite."""
+    ga, gb = g_ss_nuc[:, sys.pair_i], g_ss_nuc[:, sys.pair_j]
+    pm = sys.pair_mask
+    one = torch.ones_like(ga)
+    r0a = 0.5 * EV / torch.where(pm, ga, one)
+    r0b = 0.5 * EV / torch.where(pm, gb, one)
+    gam = EV / torch.sqrt(sys.rij ** 2 + (r0a + r0b) ** 2)
+    return torch.where(pm, gam, torch.zeros_like(gam))
 
 
 def _orbital_charges(sys: System, v: torch.Tensor) -> torch.Tensor:
@@ -162,7 +182,8 @@ def _packed_layout(cfg: SEQMConfig, A: int) -> Optional[Tuple[int, int]]:
     return None if n_st is None else (packK, n_st)
 
 
-def _integral_stack(const, sys, p, cfg, packed_m: Optional[int] = None):
+def _integral_stack(const, sys, p, cfg, packed_m: Optional[int] = None,
+                    Kbeta: Optional[torch.Tensor] = None):
     """(M, w, w_f): the core Hamiltonian (the block grid, or the static
     packed matrix of size ``packed_m`` on the class-segmented path), the
     two-electron integrals, and the integrals to feed the final Fock build
@@ -173,36 +194,46 @@ def _integral_stack(const, sys, p, cfg, packed_m: Optional[int] = None):
     hcore_split) cut hydrogen pairs to their 4- and 1-integral classes.
     With remat_integrals (auto at A >= 32) the build is checkpointed: the
     force backward recomputes it instead of keeping every intermediate.
+    ``Kbeta`` (nmol, NP, 4), in canonical pair_index(A) order, is reordered
+    to the class-segmented pair order where the layout uses it.
     """
-    A = sys.species.shape[1]
+    nmol, A = sys.species.shape
     dense, packK = _resolve_pair_layout(cfg, A)
+    if Kbeta is not None:
+        want = (nmol, A * (A - 1) // 2, 4)
+        if tuple(Kbeta.shape) != want:
+            raise ValueError(f"Kbeta has shape {tuple(Kbeta.shape)}, "
+                             f"expected (nmol, NP, 4) = {want}")
+        if packK is not None:
+            order = pair_packed_from_canonical(A, packK)
+            Kbeta = Kbeta[:, torch.as_tensor(order, device=Kbeta.device)]
     if packed_m is not None and not (dense and packK is not None):
         raise ValueError("packed_m requires the class-segmented dense path "
                          "(dense_pair_grid + pack_pairs)")
     if dense and packK is not None:
-        def build(sys, p):
+        def build(sys, p, Kbeta):
             return hcore_dense_split(const, sys, p, packK, packed_m,
                                      cfg.pair_outer_cutoff,
-                                     cfg.precise_overlap, cfg.row3)
+                                     cfg.precise_overlap, cfg.row3, Kbeta)
     elif dense:
-        def build(sys, p):
+        def build(sys, p, Kbeta):
             return hcore_dense(const, sys, p, cfg.pair_outer_cutoff,
-                               cfg.precise_overlap, cfg.row3)
+                               cfg.precise_overlap, cfg.row3, Kbeta)
     elif packK is not None:
-        def build(sys, p):
+        def build(sys, p, Kbeta):
             return hcore_split(const, sys, p, packK, cfg.precise_overlap,
-                               cfg.row3)
+                               cfg.row3, Kbeta)
     else:
-        def build(sys, p):
+        def build(sys, p, Kbeta):
             return hcore(const, sys, p, False, cfg.precise_overlap,
-                         cfg.row3)
+                         cfg.row3, Kbeta)
     remat = cfg.remat_integrals
     if remat is None:
         remat = A >= 32
     if remat and torch.is_grad_enabled():
-        M, w = checkpoint(build, sys, p, use_reentrant=False)
+        M, w = checkpoint(build, sys, p, Kbeta, use_reentrant=False)
     else:
-        M, w = build(sys, p)
+        M, w = build(sys, p, Kbeta)
     if dense and cfg.dense_fock is False:
         if not hasattr(w, "rig"):
             raise ValueError(
@@ -212,9 +243,13 @@ def _integral_stack(const, sys, p, cfg, packed_m: Optional[int] = None):
     return M, w, w
 
 
-def _nuclear_term(const, sys, w, cfg, p):
+def _nuclear_term(const, sys, w, cfg, p, gam=None):
     """(EnucAB, its pair mask or None for sys.pair_mask): gather-free on
-    grid-resident integrals, per flat pair otherwise."""
+    grid-resident integrals, per flat pair otherwise.  ``gam`` (nmol, NP)
+    overrides the integrals' gamma per flat pair (the g_ss_nuc hook,
+    :func:`_hook_gamma`)."""
+    if gam is not None:
+        return pair_nuclear_energy(const, sys, gam, cfg.method, p), None
     if hasattr(w, "gam_grid"):
         return pair_nuclear_energy_dense(const, sys, w.gam_grid(), cfg.method,
                                          p, cfg.pair_outer_cutoff)
@@ -274,11 +309,13 @@ def energy(const: Constants, tables: Mapping[str, torch.Tensor],
                       cfg.pair_outer_cutoff, heavy_count=packK,
                       species_host=sp)
     p = _atom_parameters(tables, cfg.method, sys, learned, coordinates)
+    Kbeta, g_ss_nuc = _learned_hooks(p)
 
     if packed is not None:
         # the whole fixed point at the static packed size, no relayouts
         K, n_st = packed
-        M, w, _ = _integral_stack(const, sys, p, cfg, packed_m=n_st)
+        M, w, _ = _integral_stack(const, sys, p, cfg, packed_m=n_st,
+                                  Kbeta=Kbeta)
         Pp, notconverged = scf_solve(const, sys, M, w, p, cfg.scf, P0,
                                      packed=packed)
         Fp = fock_packed_split(sys, Pp, M, w, p, K, n_st)
@@ -287,12 +324,13 @@ def energy(const: Constants, tables: Mapping[str, torch.Tensor],
         F = static_unpack_mat(Fp, K, A)
         H = static_unpack_mat(M, K, A)
     else:
-        M, w, w_f = _integral_stack(const, sys, p, cfg)
+        M, w, w_f = _integral_stack(const, sys, p, cfg, Kbeta=Kbeta)
         P, notconverged = scf_solve(const, sys, M, w, p, cfg.scf, P0)
         F = fock(sys, P, M, w_f, p)
         H = grid_to_mat(M)
         eel_tf = elec_energy_tf(P, F, H)
-    EnucAB, enuc_mask = _nuclear_term(const, sys, w, cfg, p)
+    gam = None if g_ss_nuc is None else _hook_gamma(sys, g_ss_nuc)
+    EnucAB, enuc_mask = _nuclear_term(const, sys, w, cfg, p, gam)
     Eiso = elec_energy_isolated_atom(const, sys.species, p)
     Hf, Etot, Eel, Enuc, Eiso_sum = assemble_energies(
         const, sys, eel_tf, EnucAB, Eiso, cfg.hf_flag, pair_mask=enuc_mask)

@@ -8,7 +8,10 @@ E(D, P) = Tr(D F) - 1/2 Tr((F - Hcore) P).  ``packed_io`` runs the whole
 electronic chain in the static packed layout of the class-segmented dense
 grid; otherwise P and D are (nmol, 4A, 4A) on the layout that
 ``_resolve_pair_layout`` picks, with the optional ``eigh_rescue`` of the
-worst SP2 molecules (``SCFConfig.sp2_rescue``).
+worst SP2 molecules (``SCFConfig.sp2_rescue``).  The learned hooks act as
+in ``energy()``: ``Kbeta`` in the Hcore build, ``g_ss_nuc`` in the
+core-core term (the JAX package's energy_xl drops g_ss_nuc,
+pyseqm_tpu/models/xlbomd.py:77).
 """
 from __future__ import annotations
 
@@ -24,8 +27,9 @@ from ..ops.fock import fock, fock_packed_split
 from ..ops.matrix import grid_to_mat
 from ..system import make_system
 from .energy import (LearnedParams, SEQMConfig, _atom_parameters,
-                     _integral_stack, _nuclear_term, _packed_layout,
-                     _resolve_pair_layout, _species_tensor)
+                     _hook_gamma, _integral_stack, _learned_hooks,
+                     _nuclear_term, _packed_layout, _resolve_pair_layout,
+                     _species_tensor)
 
 
 class XLEnergyOutput(NamedTuple):
@@ -54,6 +58,7 @@ def energy_xl(const: Constants, tables: Mapping[str, torch.Tensor],
     sys = make_system(const, species, coordinates, charges,
                       cfg.pair_outer_cutoff, heavy_count=packK)
     p = _atom_parameters(tables, cfg.method, sys, learned, coordinates)
+    Kbeta, g_ss_nuc = _learned_hooks(p)
     scf = cfg.scf
     if packed_io:
         packed = _packed_layout(cfg, A)
@@ -69,7 +74,8 @@ def energy_xl(const: Constants, tables: Mapping[str, torch.Tensor],
         if P.shape[-1] != n_st:
             raise ValueError(f"packed P has n={P.shape[-1]}, expected "
                              f"packed_solver_size={n_st}")
-        M, w, _ = _integral_stack(const, sys, p, cfg, packed_m=n_st)
+        M, w, _ = _integral_stack(const, sys, p, cfg, packed_m=n_st,
+                                  Kbeta=Kbeta)
         H = M
         F = fock_packed_split(sys, P, M, w, p, K, n_st)
         # D is built once from F and held constant (XLBOMD.py:124-128).
@@ -84,7 +90,7 @@ def energy_xl(const: Constants, tables: Mapping[str, torch.Tensor],
                 D = sym_eig(sys, F.detach(), pack_heavy=K,
                             prepacked=True)[1]
     else:
-        M, w, w_f = _integral_stack(const, sys, p, cfg)
+        M, w, w_f = _integral_stack(const, sys, p, cfg, Kbeta=Kbeta)
         H = grid_to_mat(M)
         F = fock(sys, P, M, w_f, p)
         with torch.no_grad():
@@ -100,7 +106,8 @@ def energy_xl(const: Constants, tables: Mapping[str, torch.Tensor],
             else:
                 D = sym_eig(sys, Fd, pack_n=scf.pack_orbitals,
                             pack_heavy=scf.pack_heavy)[1]
-    EnucAB, enuc_mask = _nuclear_term(const, sys, w, cfg, p)
+    gam = None if g_ss_nuc is None else _hook_gamma(sys, g_ss_nuc)
+    EnucAB, enuc_mask = _nuclear_term(const, sys, w, cfg, p, gam)
     Eiso = elec_energy_isolated_atom(const, sys.species, p)
     Hf, Etot, Eelec, Enuc, Eiso_sum = assemble_energies(
         const, sys, elec_energy_xl_tf(D, P, F, H), EnucAB, Eiso,

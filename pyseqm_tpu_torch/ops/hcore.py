@@ -7,7 +7,9 @@ pair-list ``hcore`` (optionally placing its integrals on the grid),
 molecules, the class-segmented ``hcore_dense_split``, whose core
 Hamiltonian comes back as the static packed matrix or as the block grid,
 and the class-segmented flat pair list ``hcore_split``.  ``row3`` (each
-of them) adds the row-3 overlap classes (ops/overlap_general.py).
+of them) adds the row-3 overlap classes (ops/overlap_general.py), and
+``Kbeta`` (each of them) scales every pair's resonance block by learned
+per-pair factors.
 """
 from __future__ import annotations
 
@@ -63,6 +65,36 @@ def _diag_add(blk, d0, dp):
     return blk + torch.diag_embed(torch.stack([d0, dp, dp, dp], dim=-1))
 
 
+def _kbeta_block(kb):
+    """The (..., 4, 4) scale of a pair's resonance block from its four
+    learned factors kb (..., 4) = (ss, sp, ps, pp) (the Kbeta hook,
+    cf. the reference hcore.py:138-143)."""
+    k0, k1, k2, k3 = kb.unbind(-1)
+    row_s = torch.stack([k0, k1, k1, k1], dim=-1)
+    row_p = torch.stack([k2, k3, k3, k3], dim=-1)
+    return torch.stack([row_s, row_p, row_p, row_p], dim=-2)
+
+
+def _kbeta_col(kb):
+    """The (..., 4) scale of an X-H pair's resonance column (heavy
+    orbitals against the hydrogen s): (ss, ps, ps, ps)."""
+    return torch.cat([kb[..., 0:1], kb[..., 2:3].expand(kb.shape[:-1] + (3,))],
+                     dim=-1)
+
+
+def _kbeta_grid(Kbeta, sys: System):
+    """The per-pair factors (nmol, NP, 4), in the order of the System's
+    pair list, mirrored onto the ordered (nmol, A, A, 4) grid: the cell
+    (j, i) of a pair takes its transposed block's factors (ss, ps, sp,
+    pp)."""
+    nmol, A = sys.species.shape
+    iu, ju = sys.pair_i, sys.pair_j
+    kg = Kbeta.new_zeros((nmol, A, A, 4))
+    kg[:, iu, ju] = Kbeta
+    kg[:, ju, iu] = Kbeta[..., [0, 2, 1, 3]]
+    return kg
+
+
 def _qn_host(sys: System) -> Optional[np.ndarray]:
     """Host principal quantum numbers (nmol, A), None without host
     species."""
@@ -82,7 +114,7 @@ def _qn_pairs_host(sys: System, s=slice(None)):
 
 def hcore(const: Constants, sys: System, p: Dict[str, torch.Tensor],
           dense_grid: bool = False, precise_overlap: bool = True,
-          row3: bool = False
+          row3: bool = False, Kbeta: Optional[torch.Tensor] = None
           ) -> Tuple[torch.Tensor, Union[WPack, WPackGrid]]:
     """Core Hamiltonian block grid and two-electron integrals on the flat
     (i < j) pair list.
@@ -91,6 +123,8 @@ def hcore(const: Constants, sys: System, p: Dict[str, torch.Tensor],
     and the compact integrals: WPack (ri (nmol, NP, 22), U (nmol, NP, 4,
     4)), or with ``dense_grid`` the same placed on the ordered grid
     (WPackGrid, tetci.to_grid), so the SCF's Fock builds need no scatters.
+    ``Kbeta`` (nmol, NP, 4): per-pair factors of the resonance blocks (the
+    learned hook), in the pair list's order.
     """
     nmol, A = sys.species.shape
     iu, ju = sys.pair_i, sys.pair_j
@@ -111,6 +145,8 @@ def hcore(const: Constants, sys: System, p: Dict[str, torch.Tensor],
     bi = torch.stack([p["beta_s"], p["beta_p"], p["beta_p"], p["beta_p"]],
                      dim=-1)                                 # (nmol, A, 4)
     off = di * 0.5 * (bi[:, iu, :, None] + bi[:, ju, None, :])
+    if Kbeta is not None:
+        off = off * _kbeta_block(Kbeta)
 
     # ---- two-electron two-center integrals (compact representation) ----
     mp = atom_multipoles(const, sys.species, p)
@@ -144,7 +180,8 @@ def hcore(const: Constants, sys: System, p: Dict[str, torch.Tensor],
 
 
 def hcore_split(const: Constants, sys: System, p: Dict[str, torch.Tensor],
-                K: int, precise_overlap: bool = True, row3: bool = False
+                K: int, precise_overlap: bool = True, row3: bool = False,
+                Kbeta: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, WPackSplit]:
     """Class-segmented flat pair list: per-pair-class integral formulas on
     the static segments of pair_index_packed (the System built with
@@ -152,8 +189,9 @@ def hcore_split(const: Constants, sys: System, p: Dict[str, torch.Tensor],
     22-integral pipeline, XH pairs (i < K <= j, j s-only by the
     descending-Z sort) the 4-integral one, HH pairs (K <= i) the single
     integral.  Matches hcore() on every physical matrix element; the dead
-    hydrogen p positions hold zeros.  Returns (M (nmol, A, A, 4, 4),
-    WPackSplit)."""
+    hydrogen p positions hold zeros.  ``Kbeta`` (nmol, NP, 4): the learned
+    resonance factors in the class-segmented pair order.  Returns (M
+    (nmol, A, A, 4, 4), WPackSplit)."""
     nmol, A = sys.species.shape
     n_xx, n_xh, n_hh = pair_segment_sizes(A, K)
     if sys.npairs != n_xx + n_xh + n_hh:
@@ -186,6 +224,8 @@ def hcore_split(const: Constants, sys: System, p: Dict[str, torch.Tensor],
     di = torch.where(ov_mask[:, s_xx][..., None, None], di, z4(di))
     off_xx = di * 0.5 * (ai(bi_full, s_xx)[..., :, None]
                          + aj(bi_full, s_xx)[..., None, :])
+    if Kbeta is not None:
+        off_xx = off_xx * _kbeta_block(Kbeta[:, s_xx])
     wxx, e1b, e2a = pair_w_pack(
         sys.rij[:, s_xx], sys.xij[:, s_xx], ai(tore, s_xx), aj(tore, s_xx),
         ai(mp["dd"], s_xx), aj(mp["dd"], s_xx),
@@ -207,6 +247,8 @@ def hcore_split(const: Constants, sys: System, p: Dict[str, torch.Tensor],
     col = torch.where(ov_mask[:, s_xh][..., None], col, z4(col))
     off_xh = col * 0.5 * (ai(bi_full, s_xh)
                           + aj(p["beta_s"], s_xh)[..., None])
+    if Kbeta is not None:
+        off_xh = off_xh * _kbeta_col(Kbeta[:, s_xh])
     wxh, e1b, e2a_ss = pair_w_xh(
         sys.rij[:, s_xh], sys.xij[:, s_xh], ai(tore, s_xh), aj(tore, s_xh),
         ai(mp["dd"], s_xh), ai(mp["qq"], s_xh),
@@ -223,6 +265,8 @@ def hcore_split(const: Constants, sys: System, p: Dict[str, torch.Tensor],
                              precise=precise_overlap)
     s111 = torch.where(ov_mask[:, s_hh], s111, z4(s111))
     off_hh = s111 * 0.5 * (ai(p["beta_s"], s_hh) + aj(p["beta_s"], s_hh))
+    if Kbeta is not None:
+        off_hh = off_hh * Kbeta[:, s_hh, 0]
     whh = local_frame_integrals_hh(sys.rij[:, s_hh], ai(mp["rho0"], s_hh),
                                    aj(mp["rho0"], s_hh))
     whh = torch.where(pm, whh, z4(whh))
@@ -341,21 +385,26 @@ def _with_diag_cells(off, dblk):
 
 def hcore_dense(const: Constants, sys: System, p: Dict[str, torch.Tensor],
                 pair_outer_cutoff: float = 1.0e10,
-                precise_overlap: bool = True, row3: bool = False
+                precise_overlap: bool = True, row3: bool = False,
+                Kbeta: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, WPackGrid]:
     """Gather-free ordered-pair core Hamiltonian for large molecules.
 
     Every pairwise quantity is built on the full ordered (nmol, A, A) grid
     by row/column broadcasting of per-atom arrays, both (i, j) and (j, i)
     evaluated; each cell computes its own (ri, U) with the bra on the row
-    atom, which is WPackGrid's contract.  Returns (M (nmol, A, A, 4, 4),
-    WPackGrid); M matches hcore()'s grid.
+    atom, which is WPackGrid's contract.  ``Kbeta`` (nmol, NP, 4): the
+    learned resonance factors of the (i < j) pairs, mirrored onto the
+    grid.  Returns (M (nmol, A, A, 4, 4), WPackGrid); M matches hcore()'s
+    grid.
     """
     am = sys.atom_mask
     pm, rij, xij, ov_mask, rij_ov = _dense_cells(sys, pair_outer_cutoff)
     mp = atom_multipoles(const, sys.species, p)
     off, ri, U, dblk = _xx_cells(const, sys, p, mp, rij, xij, pm, ov_mask,
                                  rij_ov, slice(None), precise_overlap, row3)
+    if Kbeta is not None:
+        off = off * _kbeta_block(_kbeta_grid(Kbeta, sys))
     zA = torch.zeros_like(p["U_ss"])
     dblk = _diag_add(dblk, torch.where(am, p["U_ss"], zA),
                      torch.where(am, p["U_pp"], zA))
@@ -371,6 +420,7 @@ def hcore_dense_split(
     pair_outer_cutoff: float = 1.0e10,
     precise_overlap: bool = True,
     row3: bool = False,
+    Kbeta: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, WPackGridSplit]:
     """Class-segmented gather-free core Hamiltonian and integrals.
 
@@ -382,7 +432,9 @@ def hcore_dense_split(
     block the scalar (ss|ss).  With ``packed_m`` (=
     density.packed_solver_size(K, A)) M comes back as the (nmol, packed_m,
     packed_m) static packed matrix, assembled by block concatenation;
-    without it as the (nmol, A, A, 4, 4) block grid.
+    without it as the (nmol, A, A, 4, 4) block grid.  ``Kbeta`` (nmol, NP,
+    4): the learned resonance factors in the class-segmented pair order
+    (make_system(heavy_count=K)), mirrored onto the grid once.
     """
     nmol, A = sys.species.shape
     AH = A - K
@@ -403,6 +455,9 @@ def hcore_dense_split(
     off_xx, ri_xx, U_xx, dblk_h = _xx_cells(const, sys, p, mp, rij, xij, pm,
                                             ov_mask, rij_ov, sH,
                                             precise_overlap, row3)
+    kg = None if Kbeta is None else _kbeta_grid(Kbeta, sys)
+    if kg is not None:
+        off_xx = off_xx * _kbeta_block(kg[:, sH, sH])
 
     # ---- XH block [0:K, K:A]: 4-integral class, s-only columns ----
     sL = slice(K, A)
@@ -419,6 +474,8 @@ def hcore_dense_split(
     col_ov = torch.where(ov_mask[:, sH, sL][..., None], col_ov, z4(col_ov))
     beta_xh = 0.5 * (bi_full[:, sH, None, :] + p["beta_s"][:, None, sL, None])
     off_xh = col_ov * beta_xh                           # (nmol, K, AH, 4)
+    if kg is not None:
+        off_xh = off_xh * _kbeta_col(kg[:, sH, sL])
     wxh, e1b_xh, e2a_ss = pair_w_xh(
         rij[:, sH, sL], xij[:, sH, sL],
         row(tore, sH), col(tore, sL),
@@ -441,6 +498,8 @@ def hcore_dense_split(
         precise=precise_overlap)
     s111 = torch.where(ov_mask[:, sL, sL], s111, z4(s111))
     off_hh = s111 * 0.5 * (p["beta_s"][:, sL, None] + p["beta_s"][:, None, sL])
+    if kg is not None:
+        off_hh = off_hh * kg[:, sL, sL, 0]
     whh = local_frame_integrals_hh(rij[:, sL, sL], row(mp["rho0"], sL),
                                    col(mp["rho0"], sL))
     whh = torch.where(pm_hh, whh, z4(whh))

@@ -404,7 +404,13 @@ def diatom_overlap(qni, qnj, xij, rij, zeta_i, zeta_j, precise=False,
     jcall2 = (qni == 1) & (qnj == 1)
     jcall3 = (qni == 2) & (qnj == 1)
     jcall4 = (qni == 2) & (qnj == 2)
-    zs = (zeta_i[..., 0], zeta_i[..., 1], zeta_j[..., 0], zeta_j[..., 1])
+    # an s-only atom (qn 1) has no p exponent and no class reads one: a
+    # harmless 1 stands in for whatever its zeta_p holds, as in
+    # diatom_overlap_xh.  A learned hydrogen zeta_p near 0 overflows the
+    # unread combinations at float32, and their zero cotangents turn NaN
+    one = torch.ones_like(rij)
+    zs = (zeta_i[..., 0], torch.where(qni > 1, zeta_i[..., 1], one),
+          zeta_j[..., 0], torch.where(qnj > 1, zeta_j[..., 1], one))
     S = _combinations(rij, *zs, jcall2, jcall3, jcall4, precise, 4)
     if row3:
         S = _row3_classes(S, rij, *zs, precise, qni, qnj, qn_host,

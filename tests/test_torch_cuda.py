@@ -6,8 +6,9 @@ eigh densities) through the kernels, the default flat layout's and the
 class-segmented flat pair list's energy and force, the SCF adjoint's
 parameter and coordinate gradients, a water Hessian through the
 unrolled SCF, the Langevin and Nose-Hoover drivers, steepest descent and
-the warm L-BFGS, and row 3 in every layout, against the CPU runs of the
-same inputs.
+the warm L-BFGS, row 3 in every layout, the trained HIP-NN model and the
+force it drives, the Kbeta and g_ss_nuc hooks, against the CPU runs of
+the same inputs; and checkpoint and resume on the card, bit for bit.
 
 These tests need the card and skip without one.  They import neither JAX
 nor the JAX package, so they run where only PyTorch is installed:
@@ -538,3 +539,107 @@ def test_row3_on_card_matches_cpu(cuda, dtype):
                                    atol=tol[0])
         np.testing.assert_allclose(fg.numpy(), fc.numpy(), rtol=0,
                                    atol=tol[1])
+
+
+def test_hipnn_on_card_matches_cpu(cuda):
+    """The trained HIP-NN model's parameters and the PM3 force it drives
+    (packed SP2: K1, K3) at float64 on the card against the CPU run: the
+    parameters to 1e-10, Hf to 1e-8 eV, forces to 1e-7 eV/A; a species
+    outside the model raises on the card too."""
+    from pyseqm_tpu_torch.models.hipnn import make_hipnn_callable
+    sp, co = make_batch(4, 8, jitter=0.02, seed=13)
+    K = pt.packed_heavy_count(sp)
+    out = {}
+    for dev in ("cpu", cuda):
+        const, tables, cfg = pt.build(
+            "PM3", dtype=torch.float64, device=dev,
+            scf=SCFConfig(eps=1.0e-10, converger=(2,), use_sp2=True,
+                          sp2_eps=1.0e-7, pack_heavy=K))
+        net = make_hipnn_callable(dtype=torch.float64, device=dev)
+        species = torch.tensor(sp, dtype=torch.long, device=dev)
+        x = torch.tensor(co, device=dev)
+        with torch.no_grad():
+            p = net(species, x)
+        f, o = pt.force(const, tables, cfg, species, x, learned=net)
+        assert not bool(o.notconverged.any())
+        out[str(dev)] = ({k: v.cpu() for k, v in p.items()}, f.cpu(),
+                         o.Hf.cpu())
+        with pytest.raises(ValueError, match="HIP-NN"):
+            net(torch.tensor([[16, 1, 1, 0]], device=dev), x[:1, :4])
+    (pc, fc, hc), (pg, fg, hg) = out["cpu"], out["cuda"]
+    for k in pc:
+        np.testing.assert_allclose(pg[k].numpy(), pc[k].numpy(), rtol=0,
+                                   atol=1e-10, err_msg=k)
+    np.testing.assert_allclose(hg.numpy(), hc.numpy(), rtol=0, atol=1e-8)
+    np.testing.assert_allclose(fg.numpy(), fc.numpy(), rtol=0, atol=1e-7)
+
+
+@pytest.mark.parametrize("pack", [True, False])
+def test_ml_hooks_on_card_match_cpu(cuda, pack):
+    """Kbeta and g_ss_nuc on the packed class-segmented grid and the
+    default flat layout at float64 on the card against the CPU: Hf and
+    Enuc to 1e-8 eV, their gradients to both hooks to 1e-8."""
+    sp, co = make_batch(6, 8, jitter=0.02, seed=5)
+    K = pt.packed_heavy_count(sp) if pack else None
+    rng = np.random.default_rng(17)
+    kb = rng.uniform(0.9, 1.1, (6, 28, 4))
+    out = {}
+    for dev in ("cpu", cuda):
+        const, tables, cfg = pt.build(
+            "AM1", dtype=torch.float64, device=dev,
+            scf=SCFConfig(eps=1.0e-10, converger=(2,), pack_heavy=K))
+        species = torch.tensor(sp, dtype=torch.long, device=dev)
+        k = torch.tensor(kb, device=dev, requires_grad=True)
+        g = (tables["g_ss"][species] * 1.03).requires_grad_(True)
+        o = pt.energy(const, tables, cfg, species,
+                      torch.tensor(co, device=dev),
+                      learned={"Kbeta": k, "g_ss_nuc": g})
+        gk, gg = torch.autograd.grad(o.Hf.sum(), (k, g))
+        out[str(dev)] = [t.detach().cpu() for t in (o.Hf, o.Enuc, gk, gg)]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-8)
+
+
+def test_resume_on_card_is_exact(cuda, tmp_path):
+    """Checkpoint and resume on the card at float32: the packed XL-SP2
+    driver (K1, K3) and the Langevin driver with a CUDA generator, 4 steps
+    straight against 2, a checkpoint, a fresh driver and 2 more: every
+    field equal, bit for bit."""
+    from pyseqm_tpu_torch.drivers.md import LangevinDynamics
+    from pyseqm_tpu_torch.utils.checkpoint import load_state, save_state
+    sp, co = make_batch(64, 8, jitter=0.02, seed=3)
+    K = pt.packed_heavy_count(sp)
+    const, tables, cfg = pt.build(
+        "AM1", dtype=torch.float32, device=cuda,
+        scf=SCFConfig(eps=1.0e-5, converger=(2,), use_sp2=True,
+                      sp2_eps=1.0e-4, pack_heavy=K))
+    species = torch.tensor(sp, dtype=torch.long, device=cuda)
+    x = torch.tensor(co, dtype=torch.float32, device=cuda)
+
+    def xl(seed):
+        md = XLBOMD(const, tables, cfg, MDConfig(timestep=0.4), k=5)
+        return md, md.initialize(species, x, velocities=torch.zeros_like(x),
+                                 initial_force=False)
+
+    def langevin(seed):
+        md = LangevinDynamics(const, tables, cfg,
+                              MDConfig(timestep=0.4, damp=20.0),
+                              generator=torch.Generator(cuda).manual_seed(
+                                  seed))
+        return md, md.initialize(species, x)
+
+    for build in (xl, langevin):
+        md, st = build(0)
+        for _ in range(2):
+            st, _ = md.step(species, st)
+        path = str(tmp_path / f"{build.__name__}.npz")
+        save_state(path, st, generator=getattr(md, "generator", None))
+        for _ in range(2):
+            st, _ = md.step(species, st)
+        md2, like = build(7)
+        st2 = load_state(path, like, generator=getattr(md2, "generator",
+                                                       None))
+        for _ in range(2):
+            st2, _ = md2.step(species, st2)
+        for name in ("coordinates", "velocities", "acc", "P"):
+            assert torch.equal(getattr(st, name), getattr(st2, name)), name

@@ -127,14 +127,20 @@ def test_build_defaults_to_cuda():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py, import neither JAX nor
-    the JAX package nor anything under tools/."""
+    """Every module of the port (the learned-parameter models, the
+    utilities and the seqm_parameters shim among them), and
+    chip_smoke.py, import neither JAX nor the JAX package nor anything
+    under tools/."""
+    mods = ["pyseqm_tpu_torch." + m for m in (
+        "models.ml", "models.hipnn", "utils.check", "utils.checkpoint",
+        "utils.io", "utils.timing", "compat")]
     code = ("import sys, pkgutil, importlib, pyseqm_tpu_torch, chip_smoke;"
             "[importlib.import_module(m.name) for m in pkgutil.walk_packages("
             "pyseqm_tpu_torch.__path__, 'pyseqm_tpu_torch.')];"
+            f"missing=[m for m in {mods!r} if m not in sys.modules];"
             "bad=[m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'pyseqm_tpu', 'tools', 'wapply_pallas')];"
-            "print(bad); sys.exit(1 if bad else 0)")
+            "print(bad, missing); sys.exit(1 if bad or missing else 0)")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
@@ -171,6 +177,24 @@ def test_new_modules_import_no_jax(mod):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             pt.build("PM3", row3=True)
+
+
+def test_learned_models_default_to_cuda():
+    """The learned-parameter models' entry points (load_hipnn,
+    make_hipnn_callable, weights_from_numpy) run on CUDA by default and
+    raise without a GPU unless device="cpu" is passed.  Their modules and
+    the utilities' are held to the import isolation by
+    test_port_imports_no_jax, which imports every module of the port."""
+    from pyseqm_tpu_torch.models import hipnn, ml
+    w, meta = hipnn.load_hipnn(device=CPU)
+    assert w["seqm_p"].device.type == "cpu" and meta["method"] == "PM3"
+    assert ml.weights_from_numpy({"w": np.ones(2)}, device=CPU)["w"].sum() == 2
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the CUDA default is valid here")
+    for entry in (hipnn.load_hipnn, hipnn.make_hipnn_callable,
+                  lambda: ml.weights_from_numpy({"w": np.ones(2)})):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry()
 
 
 def _pairs(dtype, n=4096, seed=0):

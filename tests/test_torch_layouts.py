@@ -371,10 +371,10 @@ def test_unported_and_dropped_options_raise():
     # the packed XL route cannot apply the rescue: raise, not drop it
     with pytest.raises(ValueError, match="sp2_rescue"):
         force_xl(const, tables, cfg, sp, torch.tensor(co), P, packed_io=True)
-    # the learned Kbeta hook (ROADMAP M18) is not ported: raise, not
-    # ignore it
-    kb = torch.ones((2, sp.shape[1] * (sp.shape[1] - 1) // 2, 4),
+    # a learned Kbeta hook whose pair count is not the batch's: raise, not
+    # broadcast or drop it
+    kb = torch.ones((2, sp.shape[1] * (sp.shape[1] - 1) // 2 - 1, 4),
                     dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="Kbeta"):
+    with pytest.raises(ValueError, match="Kbeta"):
         pt.energy(const, tables, cfg, sp, torch.tensor(co),
                   learned={"Kbeta": kb})
