@@ -103,7 +103,7 @@ line is printed):
     over one period of its chain's oscillation;
 26. opt and opt-conv (`bench.py --config opt`, `opt-conv`): the warm
     batched L-BFGS (chunk 10, force_tol 1e-3) on 2,048 molecules (jitter
-    0.05) for its first 40 iterations: molecule-iterations/s, the
+    0.05) for its first 20 iterations: molecule-iterations/s, the
     molecules converged by then per second, molecules frozen by forced
     accepts; no molecule's Hf rises;
 27. opt-sd (`bench.py --config opt-sd`): chunked steepest descent, 60
@@ -137,6 +137,24 @@ line is printed):
     5 more, bit for bit, on the headline XL-SP2 path and the Langevin
     bomd path (with the generator's state); run(thermo=2, dump=3)'s xyz
     frames and a Timing;
+35. lbfgs-optax (`bench.py --config opt`'s default route, the JAX
+    package's optax L-BFGS): the zoom host loop on the opt batch, its
+    first 10 outer iterations: molecule-iterations/s, value evaluations
+    per iteration, line-search failures, K1-K3 launches; sum(Hf) falls
+    and no accepted step raises it past the approximate-Wolfe slack;
+    then the backtracking and none routes and the chunked route (zoom,
+    chunk 5) for 5 iterations on 256 molecules, and 8 molecules at
+    float64 for 5 zoom iterations on the card against the same call on
+    the CPU;
+36. sharded (`parallel/`): an NCCL group of one on the card runs the
+    sharded XL-SP2 step on the headline batch (steps/s beside phase 4's),
+    the sharded force and 3 data-parallel training steps (1,024
+    molecules, eigh, backward 1; its all_reduce calls); then two ranks
+    over gloo with CUDA tensors on the same card (NCCL refuses two ranks
+    on one device) on 1,023 molecules padded to 1,024: their XL state
+    after 5 steps, gathered, bit for bit against one process's run of
+    each rank's block and within float32 rounding of its run of the whole
+    batch, and the padding finite;
 23. a JSON line of every kernel with its launches, error and times against
     its bound; then the card; the elapsed time; then the result line.
 
@@ -252,8 +270,29 @@ NVT_NMOL, NVT_SAMPLE, NH_SAMPLE = NMOL, 40, 111
 OPT_NMOL = 2048
 # the L-BFGS runs its first OPT_ITERS iterations: run to every molecule
 # done (106 iterations) it took 272-446 s of this script's time limit on
-# a host-bound H100 step, 60 iterations 199-270 s
-OPT_ITERS = 40
+# a host-bound H100 step, 60 iterations 199-270 s, 40 iterations 118-318 s
+OPT_ITERS = 20
+# the optax-routed L-BFGS (phase 35): outer iterations of the zoom host
+# loop on the opt batch; molecules and iterations of the other routes;
+# molecules of the float64 card-against-CPU check and its bound (A)
+OPTAX_ITERS, OPTAX_SMALL_NMOL, OPTAX_SMALL_ITERS = 10, 256, 5
+OPTAX_F64_NMOL, TOL_OPTAX_F64 = 8, 1.0e-8
+# sharded (phase 36): timed XL steps of the NCCL group of one; molecules
+# and steps of its training step; molecules (real) and steps of the two
+# gloo ranks on one card.  Their gathered state equals one process's run
+# of the same blocks bit for bit (the packed path is reproducible for a
+# given batch).  One process's run of the whole batch (another batch
+# size: cuBLAS may pick other kernels for the batched products) differs
+# by float32 rounding carried through 5 XL steps, where SP2 amplifies
+# it: on an H100 80GB HBM3 at 700 W up to 9.1e-5 of the largest |acc|,
+# 2.5e-7 in the coordinates, 8.9e-7 in the densities, 0 in E0 (1.4e-4 of
+# |acc| with 1,021 molecules on another host).  Bound: 1e-3 of each
+# field's largest value, the scale of the float32 force budget (TOL_F,
+# 1e-3 eV/A, on forces of ~1-10 eV/A); a molecule in the wrong rank or
+# slot would differ by O(1)
+SHARD_STEPS, SHARD_TRAIN_NMOL, SHARD_TRAIN_STEPS = 10, 1024, 3
+SHARD_REAL, SHARD_RANKS, SHARD_GLOO_STEPS = 1023, 2, 5
+TOL_SHARD_REL = 1.0e-3
 TOL_NVT_T, TOL_OPT_RISE = 15.0, 1.0e-5
 # the learned-parameter paths (phases 30-34): timed XL steps after WARMUP;
 # molecules of the hook and weight-gradient phases; steps of the resume
@@ -637,24 +676,27 @@ def phase_kernel_parity():
     return worst
 
 
-def headline_setup(nmol, dtype, scf_eps, sp2_eps, use_sp2=True, pack=True):
+def headline_setup(nmol, dtype, scf_eps, sp2_eps, use_sp2=True, pack=True,
+                   device=None):
     """The headline batch (first nmol molecules) and its configuration:
     the static packed layout (pack_heavy), or with ``pack=False`` the
-    default layout (flat pair list, full 4A electronic state)."""
+    default layout (flat pair list, full 4A electronic state), on
+    ``device`` (DEV unless given)."""
     import pyseqm_tpu_torch as pt
     from pyseqm_tpu_torch.scf import SCFConfig
     from pyseqm_tpu_torch.utils.molecules import make_batch
+    device = device or DEV
     sp, co = make_batch(NMOL, MOLSIZE, jitter=0.02)
     sp, co = sp[:nmol], co[:nmol]
     K = pt.packed_heavy_count(sp) if pack else None
     const, tables, cfg = pt.build(
-        "AM1", dtype=dtype, device=DEV,
+        "AM1", dtype=dtype, device=device,
         scf=SCFConfig(eps=scf_eps, converger=(2,), use_sp2=use_sp2,
                       sp2_eps=sp2_eps, max_iter=200, pack_heavy=K,
                       raise_on_forward_failure=True))
-    species = torch.tensor(sp, dtype=torch.long, device=DEV)
+    species = torch.tensor(sp, dtype=torch.long, device=device)
     # both precisions see the same (f32-representable) geometry
-    coords = torch.tensor(co.astype(np.float32), dtype=dtype, device=DEV)
+    coords = torch.tensor(co.astype(np.float32), dtype=dtype, device=device)
     return const, tables, cfg, species, coords
 
 
@@ -2016,24 +2058,26 @@ def kernels_reset():
 
 
 def bomd_setup(nmol, dtype, names=None, jitter=0.02, eps=1.0e-4,
-               row3=False, strict=True, sp2_eps=1.0e-4):
+               row3=False, strict=True, sp2_eps=1.0e-4, device=None):
     """``bench.py --config bomd``'s batch and configuration (also opt's,
     with jitter 0.05, and scf-row3's, with the row-3 names and eps 1e-5):
     AM1, SP2 at sp2_eps 1e-4 (float64 references: 1e-7, as phase 7) on
     the static packed layout.  ``strict``: an
     unconverged SCF raises (the optimizers' trial steps may not converge
-    and are rejected by the line search instead)."""
+    and are rejected by the line search instead).  ``device``: DEV unless
+    given."""
     import pyseqm_tpu_torch as pt
     from pyseqm_tpu_torch.scf import SCFConfig
     from pyseqm_tpu_torch.utils.molecules import make_batch
+    device = device or DEV
     sp, co = make_batch(nmol, MOLSIZE, jitter=jitter, names=names)
     const, tables, cfg = pt.build(
-        "AM1", dtype=dtype, device=DEV, row3=row3,
+        "AM1", dtype=dtype, device=device, row3=row3,
         scf=SCFConfig(eps=eps, converger=(2,), use_sp2=True, sp2_eps=sp2_eps,
                       max_iter=200, pack_heavy=pt.packed_heavy_count(sp),
                       raise_on_forward_failure=strict))
-    species = torch.tensor(sp, dtype=torch.long, device=DEV)
-    coords = torch.tensor(co.astype(np.float32), dtype=dtype, device=DEV)
+    species = torch.tensor(sp, dtype=torch.long, device=device)
+    coords = torch.tensor(co.astype(np.float32), dtype=dtype, device=device)
     return const, tables, cfg, species, coords
 
 
@@ -2897,6 +2941,369 @@ def phase_resume(card):
     return out
 
 
+def optax_iterations(step, state, x, iters):
+    """``iters`` outer iterations of an optax-routed L-BFGS ``step``:
+    the final point and state, the value (sum of Hf) at the start of
+    each iteration, the line-search failures and the accepted step
+    sizes."""
+    values, failed, rates = [], 0, []
+    for _ in range(iters):
+        x, state, value, _ = step(x, state)
+        values.append(value.item())
+        failed += int(state.failed)
+        rates.append(state.learning_rate)
+    return x, state, values, failed, rates
+
+
+def rises_past_slack(values):
+    """The accepted steps that raised sum(Hf) by more than the zoom
+    search's approximate-Wolfe slack, 1e-6 |sum Hf| plus the float32
+    spacing of sum Hf: (iteration, rise, slack) of each."""
+    out = []
+    for i, (a, b) in enumerate(zip(values, values[1:])):
+        slack = 1.0e-6 * abs(a) + float(np.spacing(np.float32(abs(a))))
+        if b - a > slack:
+            out.append((i, b - a, slack))
+    return out
+
+
+def phase_lbfgs_optax(card):
+    """The JAX package's default L-BFGS (``make_lbfgs``, optax's chain:
+    two-loop recursion on the whole batch as one vector, then the zoom
+    line search, every evaluation a cold SCF) on the opt batch for its
+    first OPTAX_ITERS outer iterations; the backtracking and none routes
+    and the chunked route on OPTAX_SMALL_NMOL molecules; and the zoom
+    route at float64 on the card against the same call on the CPU."""
+    from pyseqm_tpu_torch.drivers import opt
+    const, tables, cfg, species, coords = bomd_setup(OPT_NMOL, torch.float32,
+                                                     jitter=0.05,
+                                                     strict=False)
+    init, step = opt.make_lbfgs(const, tables, cfg, species)
+    sync()
+    kernels_reset()
+    opt.lbfgs_evaluations = 0
+    t0 = time.perf_counter()
+    x, state, values, failed, rates = optax_iterations(
+        step, init(coords), coords, OPTAX_ITERS)
+    sync()
+    dt = time.perf_counter() - t0
+    n = kernel_counts()
+    evals = opt.lbfgs_evaluations
+    values.append(state.value)
+    rises = rises_past_slack(values)
+    finite = bool(torch.isfinite(x).all()) and bool(np.isfinite(values).all())
+    mips = OPT_NMOL * OPTAX_ITERS / dt
+    # per molecule, max |g| at the last accepted point (the line search's
+    # gradient there, masked to real atoms), against phase 26's criterion
+    gerr = torch.where((species > 0)[..., None], state.grad,
+                       torch.zeros_like(state.grad)).abs().amax(dim=(1, 2))
+    ncv = int((gerr <= 1.0e-3).sum())
+    print(f"[35 lbfgs-optax zoom] {OPT_NMOL} x {MOLSIZE} AM1 f32 SP2 packed, "
+          f"optax L-BFGS (zoom), {OPTAX_ITERS} outer iterations: "
+          f"{mips:.1f} molecule-iterations/s ({dt:.2f} s) on {card} | "
+          f"{evals / OPTAX_ITERS:.2f} value evaluations per iteration "
+          f"({evals}) | line-search failures {failed} | step sizes "
+          f"{' '.join(f'{r:.3g}' for r in rates)} | sum Hf "
+          f"{values[0]:.4f} -> {values[-1]:.4f} eV | rises past the slack "
+          f"{rises} | molecules at max|g| <= 1e-3: {ncv}, median max|g| "
+          f"{gerr.median().item():.3e} | K1 {n[0]} K2 {n[1]} K3 fwd {n[2]} "
+          f"bwd {n[3]} | finite {finite}", flush=True)
+    check(finite, "lbfgs-optax: non-finite state")
+    check(values[-1] < values[0], f"lbfgs-optax: sum Hf {values[0]} -> "
+          f"{values[-1]}")
+    check(not rises, f"lbfgs-optax: accepted steps raised sum Hf {rises}")
+    check(n[0] > 0 and n[2] > 0 and n[3] > 0, f"lbfgs-optax launches {n}")
+    out = {"molecule_iterations_per_s": mips, "s": dt,
+           "evaluations_per_iteration": evals / OPTAX_ITERS,
+           "linesearch_failures": failed, "step_sizes": rates,
+           "sum_hf_start": values[0], "sum_hf_end": values[-1],
+           "converged": ncv, "median_max_grad": gerr.median().item(),
+           "k1_launches": n[0], "k2_launches": n[1], "k3_launches": n[2:]}
+
+    # the other routes on the first OPTAX_SMALL_NMOL molecules
+    small = bomd_setup(OPTAX_SMALL_NMOL, torch.float32, jitter=0.05,
+                       strict=False)
+    k1 = n[0]
+    k3 = list(n[2:])
+    for route in ("backtracking", "none", "chunk"):
+        opt.lbfgs_evaluations = 0
+        kernels_reset()
+        t0 = time.perf_counter()
+        if route == "chunk":
+            cinit, run = opt.make_lbfgs_chunk(*small[:4],
+                                              chunk=OPTAX_SMALL_ITERS)
+            x0 = small[4]
+            v0 = float(pt_energy_sum(small, x0))
+            x, st, _, nit, value, _ = run(x0, cinit(x0), False, 0)
+            values, failed = [v0, st.value], int(st.failed)
+            check(nit == OPTAX_SMALL_ITERS, f"chunked route: nit {nit}")
+        else:
+            sinit, sstep = opt.make_lbfgs(*small[:4], linesearch=route)
+            x, st, values, failed, _ = optax_iterations(
+                sstep, sinit(small[4]), small[4], OPTAX_SMALL_ITERS)
+            values.append(float(pt_energy_sum(small, x)))
+        sync()
+        dt = time.perf_counter() - t0
+        m = kernel_counts()
+        k1 += m[0]
+        k3 = [a + b for a, b in zip(k3, m[2:])]
+        fin = bool(torch.isfinite(x).all()) and bool(np.isfinite(values)
+                                                     .all())
+        ev = opt.lbfgs_evaluations / OPTAX_SMALL_ITERS
+        print(f"[35 lbfgs-optax {route}] {OPTAX_SMALL_NMOL} molecules, "
+              f"{OPTAX_SMALL_ITERS} iterations: {dt:.2f} s, {ev:.2f} value "
+              f"evaluations per iteration, line-search failures {failed} | "
+              f"sum Hf {values[0]:.4f} -> {values[-1]:.4f} eV | K1 {m[0]} "
+              f"K3 fwd {m[2]} bwd {m[3]} | finite {fin}", flush=True)
+        check(fin, f"lbfgs-optax {route}: non-finite state")
+        if route != "none":     # the unit step promises no decrease
+            check(values[-1] < values[0], f"lbfgs-optax {route}: sum Hf "
+                  f"{values[0]} -> {values[-1]}")
+        out[route] = {"s": dt, "evaluations_per_iteration": ev,
+                      "linesearch_failures": failed,
+                      "sum_hf_start": values[0], "sum_hf_end": values[-1]}
+
+    # float64: the card against the CPU, the same call
+    xs = []
+    for device in (DEV, "cpu"):
+        c = bomd_setup(OPTAX_F64_NMOL, torch.float64, jitter=0.05,
+                       eps=1.0e-10, sp2_eps=1.0e-7, device=device)
+        finit, fstep = opt.make_lbfgs(*c[:4])
+        x, _, values, _, _ = optax_iterations(fstep, finit(c[4]), c[4],
+                                              OPTAX_SMALL_ITERS)
+        xs.append(x.cpu())
+    dx = (xs[0] - xs[1]).abs().max().item()
+    print(f"[35 lbfgs-optax f64] {OPTAX_F64_NMOL} molecules, "
+          f"{OPTAX_SMALL_ITERS} zoom iterations, card against CPU: max "
+          f"|dx| {dx:.2e} A (bound {TOL_OPTAX_F64:g})", flush=True)
+    check(dx <= TOL_OPTAX_F64, f"lbfgs-optax f64: card against CPU {dx} A")
+    out.update(k1_launches=k1, k3_launches=tuple(k3), f64_max_dx=dx)
+    return out
+
+
+def pt_energy_sum(setup, x):
+    import pyseqm_tpu_torch as pt
+    const, tables, cfg, species, _ = setup
+    with torch.no_grad():
+        return pt.energy(const, tables, cfg, species, x).Hf.sum()
+
+
+def sharded_rank(rank, world, port, out, device, nreal, steps):
+    """A rank of phase 36's gloo group on one card: ``steps`` sharded
+    XL-SP2 steps of its block of the first ``nreal`` headline molecules,
+    padded to a multiple of the group; rank 0 saves the gathered
+    state."""
+    import torch.distributed as dist
+    from pyseqm_tpu_torch import parallel
+    from pyseqm_tpu_torch.drivers.md import MDConfig
+    from pyseqm_tpu_torch.drivers.xlbomd import XLBOMD
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = parallel.molecule_mesh(device=device)
+        const, tables, cfg, species, coords = headline_setup(
+            nreal, torch.float32, 1.0e-5, 1.0e-4, device=device)
+        psp, pco, _, _ = parallel.pad_to_mesh(mesh, species, coords)
+        ssp, sco = parallel.shard_molecules(mesh, (psp, pco))
+        md = XLBOMD(const, tables, cfg, MDConfig(timestep=0.4), k=5)
+        st = md.initialize(ssp, sco, velocities=torch.zeros_like(sco),
+                           initial_force=False)
+        step = parallel.sharded_xlbomd_step(md, mesh)
+        for _ in range(steps):
+            st, _ = step(ssp, st)
+        whole = parallel.gather_molecules(mesh, st)
+        if rank == 0:
+            torch.save({f.name: (getattr(whole, f.name).cpu()
+                                 if torch.is_tensor(getattr(whole, f.name))
+                                 else getattr(whole, f.name))
+                        for f in dataclasses.fields(whole)}, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(fn, world, args, timeout):
+    """Spawn ``world`` processes running fn(rank, world, *args), join them
+    within ``timeout`` seconds, and stop them all if one fails or the
+    time runs out."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(fn, args=(world,) + tuple(args), nprocs=world,
+                             join=False, start_method="spawn")
+    deadline = time.perf_counter() + timeout
+    try:
+        while not ctx.join(timeout=5):
+            check(time.perf_counter() < deadline,
+                  f"ranks did not finish within {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+def phase_sharded(card, main_sps):
+    """Data parallelism over molecules (``parallel/``): an NCCL group of
+    one on the card runs the sharded XL-SP2 step on the headline batch,
+    the sharded force, and the data-parallel training step on
+    SHARD_TRAIN_NMOL molecules (eigh, backward 1); then two gloo ranks
+    with CUDA tensors on this card, SHARD_REAL molecules padded to a
+    multiple of the ranks, their XL state after SHARD_GLOO_STEPS steps
+    against one process's."""
+    import torch.distributed as dist
+    import pyseqm_tpu_torch as pt
+    from pyseqm_tpu_torch import parallel
+    from pyseqm_tpu_torch.drivers.md import MDConfig
+    from pyseqm_tpu_torch.drivers.xlbomd import XLBOMD
+    from pyseqm_tpu_torch.parallel import sharding
+    mesh = parallel.molecule_mesh(device=DEV)
+    try:
+        check(mesh.backend == "nccl" and mesh.size == 1,
+              f"mesh {mesh.backend} of {mesh.size}")
+        const, tables, cfg, species, coords = headline_setup(
+            NMOL, torch.float32, 1.0e-5, 1.0e-4)
+        md = XLBOMD(const, tables, cfg, MDConfig(timestep=0.4), k=5)
+        state = md.initialize(species, coords,
+                              velocities=torch.zeros_like(coords),
+                              initial_force=False)
+        ssp, sst = parallel.shard_molecules(mesh, species), \
+            parallel.shard_molecules(mesh, state)
+        step = parallel.sharded_xlbomd_step(md, mesh)
+        sst, _ = step(ssp, sst)
+        sync()
+        kernels_reset()
+        t0 = time.perf_counter()
+        for _ in range(SHARD_STEPS):
+            sst, obs = step(ssp, sst)
+        sync()
+        dt = time.perf_counter() - t0
+        n = kernel_counts()
+        f, hf = parallel.sharded_force_fn(const, tables, cfg, mesh)(
+            ssp, sst.coordinates)
+        m = kernel_counts()
+        finite = bool(torch.isfinite(sst.coordinates).all()
+                      and torch.isfinite(sst.P).all()
+                      and torch.isfinite(f).all()
+                      and torch.isfinite(hf).all())
+        sps = SHARD_STEPS / dt
+        print(f"[36 sharded xl] {mesh.backend} group of {mesh.size} on "
+              f"{mesh.device}: "
+              f"{NMOL} x {MOLSIZE} XL-SP2 {sps:.3f} steps/s beside phase "
+              f"4's {main_sps:.3f} on {card} | K1 {n[0]} in "
+              f"{SHARD_STEPS} steps, K3 fwd {n[2]} bwd {n[3]} | sharded "
+              f"force K3 fwd {m[2] - n[2]} bwd {m[3] - n[3]} | finite "
+              f"{finite}", flush=True)
+        check(finite, "sharded: non-finite state or force")
+        check(n[0] == SHARD_STEPS, f"sharded: K1 {n[0]} in {SHARD_STEPS} "
+              "steps")
+        k1, k3 = m[0], list(m[2:])
+        del md, state, sst, f, hf
+        torch.cuda.empty_cache()
+
+        # the training step on the eigh SCF with backward mode 1
+        tc, tt, tcfg, tsp, tco = adjoint_setup(SHARD_TRAIN_NMOL,
+                                               torch.float32, 1.0e-5, True)
+        with torch.no_grad():
+            target = pt.energy(tc, tt, tcfg, tsp, tco).Hf + 0.05
+        names = ("U_ss", "zeta_s")
+        train = parallel.make_train_step(tc, tt, tcfg, mesh, names, lr=1e-4)
+        deltas = {k: torch.zeros_like(tt[k]) for k in names}
+        kernels_reset()
+        reduces = sharding.all_reduces
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(SHARD_TRAIN_STEPS):
+            deltas, loss = train(deltas, tsp, tco, target)
+            losses.append(loss.item())
+        sync()
+        dt = time.perf_counter() - t0
+        t = kernel_counts()
+        reduces = sharding.all_reduces - reduces
+        moved = max(d.abs().max().item() for d in deltas.values())
+        print(f"[36 sharded train] {SHARD_TRAIN_NMOL} molecules, eigh "
+              f"backward 1, U_ss and zeta_s offsets, lr 1e-4: "
+              f"{SHARD_TRAIN_STEPS} steps {dt:.2f} s | loss "
+              f"{' '.join(f'{v:.6g}' for v in losses)} | largest offset "
+              f"{moved:.3g} | {mesh.backend} all_reduce calls {reduces} | K2 {t[1]} "
+              f"K3 fwd {t[2]} bwd {t[3]}", flush=True)
+        check(np.isfinite(losses).all() and losses[-1] < losses[0],
+              f"sharded train: losses {losses}")
+        check(reduces == SHARD_TRAIN_STEPS, f"all_reduce calls {reduces}")
+        check(t[1] > 0 and t[2] > 0 and t[3] > 0, f"train launches {t}")
+        k3 = [a + b for a, b in zip(k3, t[2:])]
+        k2 = t[1]
+    finally:
+        dist.destroy_process_group()
+
+    # two gloo ranks on this card, a padded batch; one process's reference
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "ranks.pt")
+        t0 = time.perf_counter()
+        run_ranks(sharded_rank, SHARD_RANKS,
+                  (free_port(), out, DEV, SHARD_REAL, SHARD_GLOO_STEPS), 600)
+        t_ranks = time.perf_counter() - t0
+        got = torch.load(out)
+    # one process: the whole real batch, and each rank's block alone
+    const, tables, cfg, species, coords = headline_setup(
+        SHARD_REAL, torch.float32, 1.0e-5, 1.0e-4)
+    md = XLBOMD(const, tables, cfg, MDConfig(timestep=0.4), k=5)
+    padded = got["coordinates"].shape[0]
+    check(padded == SHARD_REAL + (-SHARD_REAL) % SHARD_RANKS,
+          f"sharded gloo: {padded} molecules gathered")
+    pad = padded - SHARD_REAL
+    psp = torch.cat([species, species.new_zeros((pad,) + species.shape[1:])])
+    pco = torch.cat([coords, coords.new_zeros((pad,) + coords.shape[1:])])
+    blk = padded // SHARD_RANKS
+    kernels_reset()
+    refs = {}
+    for name, (a, b) in [("whole", (0, SHARD_REAL))] + [
+            (f"block {r}", (r * blk, (r + 1) * blk))
+            for r in range(SHARD_RANKS)]:
+        sp_, co_ = psp[a:b], pco[a:b]
+        st = md.initialize(sp_, co_, velocities=torch.zeros_like(co_),
+                           initial_force=False)
+        for _ in range(SHARD_GLOO_STEPS):
+            st, _ = md.step(sp_, st)
+        refs[name] = st
+    r = kernel_counts()
+    k1 += r[0]
+    k3 = [a + b for a, b in zip(k3, r[2:])]
+    axes = parallel.xlbomd_state_specs()
+    rel, blocks_equal, pad_finite = {}, True, True
+    for f in ("coordinates", "velocities", "acc", "D", "P", "Pt", "E0"):
+        a, ax = got[f], getattr(axes, f)
+        ref = getattr(refs["whole"], f).cpu()
+        rel[f] = ((a.narrow(ax, 0, SHARD_REAL) - ref).abs().max()
+                  / ref.abs().max()).item()
+        blocks_equal &= torch.equal(a, torch.cat(
+            [getattr(refs[f"block {r}"], f).cpu()
+             for r in range(SHARD_RANKS)], dim=ax))
+        pad_finite &= bool(torch.isfinite(a).all())
+    print(f"[36 sharded gloo] {SHARD_RANKS} ranks, gloo, CUDA tensors on "
+          f"one card: {SHARD_REAL} molecules padded to {padded}, "
+          f"{SHARD_GLOO_STEPS} XL steps ({t_ranks:.1f} s with the ranks' "
+          f"start) | gathered against one process's run of each rank's "
+          f"block: bit for bit {blocks_equal} | against its run of the "
+          f"whole batch, max |d| / max |value| "
+          + " ".join(f"{k} {v:.1e}" for k, v in rel.items())
+          + f" (bound {TOL_SHARD_REL:g}) | padding finite {pad_finite} | "
+          f"step {got['step']}", flush=True)
+    check(blocks_equal, "sharded gloo: the ranks' blocks differ from one "
+          "process's run of the same blocks")
+    check(max(rel.values()) <= TOL_SHARD_REL, f"sharded gloo: {rel}")
+    check(pad_finite, "sharded gloo: non-finite padding")
+    return {"steps_per_s": sps, "main_path_steps_per_s": main_sps,
+            "train_s": dt, "train_losses": losses,
+            "all_reduce_calls": reduces, "gloo_blocks_bit_for_bit":
+            blocks_equal, "gloo_whole_max_rel_diff": rel, "gloo_s": t_ranks,
+            "k1_launches": k1, "k2_launches": k2, "k3_launches": tuple(k3)}
+
+
 def k3_timing(ri, U, X, perm, tag, flush):
     """K3 on one path's own operands (the exchange apply of its Fock
     build): each kernel launch alone (median of 20, device time), with its
@@ -3115,6 +3522,12 @@ def main():
     with Phase("34 resume"):
         resume = phase_resume(card)
     torch.cuda.empty_cache()
+    with Phase("35 lbfgs-optax"):
+        optax = phase_lbfgs_optax(card)
+    torch.cuda.empty_cache()
+    with Phase("36 sharded"):
+        sharded = phase_sharded(card, sps)
+    torch.cuda.empty_cache()
     k1_paths = {"xlbomd_sp2": launches, "bomd": bomd["k1_launches"],
                 "nvt_langevin": nvt["langevin"]["k1_launches"],
                 "nvt_nose_hoover": nvt["nose_hoover"]["k1_launches"],
@@ -3123,16 +3536,19 @@ def main():
                 "xlbomd_ml_trained": ml_trained["k1_launches"],
                 "xlbomd_ml": ml_random["k1_launches"],
                 "ml_hooks": hooks["k1_launches"],
-                "resume": resume["k1_launches"]}
+                "resume": resume["k1_launches"],
+                "lbfgs_optax": optax["k1_launches"],
+                "sharded": sharded["k1_launches"]}
     for path, n in k1_paths.items():
         check(n > 0, f"K1 was not launched on the {path} path")
     by_path.update(scf_adjoint=adj["k2_launches"],
                    scf_adjoint_flat=adj_flat["k2_launches"],
                    hessian=hess["k2_launches"],
                    ml_hooks=hooks["k2_launches"],
-                   ml_grad=ml_grad["k2_launches"])
+                   ml_grad=ml_grad["k2_launches"],
+                   sharded_train=sharded["k2_launches"])
     for path in ("scf_adjoint", "scf_adjoint_flat", "hessian", "ml_hooks",
-                 "ml_grad"):
+                 "ml_grad", "sharded_train"):
         check(by_path[path] > 0, f"K2 was not launched on the {path} path")
 
     k3_paths = {"xlbomd_sp2": k3_main, "scf_eigh": scf_eigh["k3_launches"],
@@ -3154,14 +3570,16 @@ def main():
                 "xlbomd_ml": ml_random["k3_launches"],
                 "ml_hooks": hooks["k3_launches"],
                 "ml_grad": ml_grad["k3_launches"],
-                "resume": resume["k3_launches"]}
+                "resume": resume["k3_launches"],
+                "lbfgs_optax": optax["k3_launches"],
+                "sharded": sharded["k3_launches"]}
     for path, (nf, nb) in k3_paths.items():
         check(nf > 0, f"K3 forward was not launched on the {path} path")
     for path in ("xlbomd_sp2", "eig_true", "xlbomd_eigh", "nanostar_packed",
                  "nanostar_dense", "scf_adjoint", "scf_adjoint_flat",
                  "hessian", "bomd", "nvt_langevin", "nvt_nose_hoover", "opt",
                  "opt_sd", "row3_pin", "xlbomd_ml_trained", "xlbomd_ml",
-                 "ml_hooks", "ml_grad", "resume"):
+                 "ml_hooks", "ml_grad", "resume", "lbfgs_optax", "sharded"):
         check(k3_paths[path][1] > 0, f"K3 backward was not launched on the "
               f"{path} path")
     xch = (1, 3, 2, 4)
@@ -3191,12 +3609,13 @@ def main():
           "phases": ["8 parity", "9 scf-eigh", "10 eig=True",
                      "11 xlbomd-eigh", "12 timing", "14 flat default",
                      "19 scf-adjoint", "20 hessian", "32 ml-hooks",
-                     "33 ml-grad"]}
+                     "33 ml-grad", "36 sharded"]}
     k1["launches"] = sum(k1_paths.values())
     k1["launches_by_path"] = k1_paths
     k1["phases"] += ["24 bomd", "25 nvt", "26 opt", "27 opt-sd",
                      "28 scf-row3", "30 xlbomd-ml-trained", "31 xlbomd-ml",
-                     "32 ml-hooks", "34 resume"]
+                     "32 ml-hooks", "34 resume", "35 lbfgs-optax",
+                     "36 sharded"]
     k1["ptxas"] = ptxas["sp2"]
     k3f = k3_entry("wapply_fwd", "fwd", "tools/wapply_pallas.py:181",
                    {p: n[0] for p, n in k3_paths.items()}, k3_t, worst3,
@@ -3227,7 +3646,8 @@ def main():
                       "scf_row3": row3, "row3_pin": pin,
                       "xlbomd_ml_trained": ml_trained,
                       "xlbomd_ml": ml_random, "ml_hooks": hooks,
-                      "ml_grad": ml_grad, "resume": resume}),
+                      "ml_grad": ml_grad, "resume": resume,
+                      "lbfgs_optax": optax, "sharded": sharded}),
           flush=True)
     print(json.dumps({"kernels": [k1, k2, k3f, k3b]}), flush=True)
     print(card_line(), flush=True)

@@ -10,8 +10,11 @@ Jacobi eigensolver (csrc/eigh.cu) or SP2 purification (csrc/sp2.cu), and
 every Fock build's two-electron contraction from the fused apply
 (csrc/wapply.cu), all hand-written CUDA kernels; learned per-atom
 parameters from a network (models/ml.py) or the reference's trained
-HIP-NN model (models/hipnn.py), with the Kbeta and g_ss_nuc hooks; and
-checkpoints, trajectory dumps, sanitizers and phase timing (utils/).
+HIP-NN model (models/hipnn.py), with the Kbeta and g_ss_nuc hooks;
+geometry optimization (drivers/opt.py: steepest descent, the warm batched
+L-BFGS and the optax-routed L-BFGS); data parallelism over the molecule
+axis on torch.distributed (parallel/); and checkpoints, trajectory dumps,
+sanitizers and phase timing (utils/).
 Entry points run on CUDA unless the caller passes device="cpu".  The
 package imports torch and numpy only.
 """

@@ -50,7 +50,8 @@ def kinetic_energy(const: Constants, species, velocities):
     """(Ek [eV], T [K]) per molecule (cf. MolecularDynamics.py:229-233)."""
     mass = atom_masses_zero_pad(const, species)
     Ek = (0.5 * mass * velocities ** 2).sum(dim=(1, 2)) * KE_SCALE
-    ndof = 1.5 * (species > 0).sum(dim=1).to(Ek.dtype)
+    # an empty molecule (a padding row) has T = 0, not 0/0
+    ndof = 1.5 * torch.clamp((species > 0).sum(dim=1), min=1).to(Ek.dtype)
     return Ek, Ek * EV_PER_KELVIN / ndof
 
 

@@ -2,12 +2,15 @@
 
 PyTorch counterpart of ``pyseqm_tpu/drivers/opt.py``: fixed-step steepest
 descent with and without a 5-candidate line search (cf.
-Geometry_Optimization_SD(_LS), seqm/MolecularDynamics.py:5-156) and the
+Geometry_Optimization_SD(_LS), seqm/MolecularDynamics.py:5-156), the
 warm batched L-BFGS, the production optimizer (the batched counterpart of
-the reference's scipy L-BFGS-B workflow, examples/opt.py:63-79).  Every
-energy and gradient evaluation threads the last converged density in as
-the SCF's initial guess.  A ``utils.timing.Timing`` given as ``timing``
-records the work between two host reads as phase "optimize".
+the reference's scipy L-BFGS-B workflow, examples/opt.py:63-79), whose
+energy and gradient evaluations thread the last converged density in as
+the SCF's initial guess, and the JAX package's optax-routed L-BFGS
+(``make_lbfgs``, ``make_lbfgs_chunk``; optax's chain written by hand in
+``_lbfgs.py``), whose every evaluation is a cold SCF of the whole batch
+as one objective.  A ``utils.timing.Timing`` given as ``timing`` records
+the work between two host reads as phase "optimize".
 """
 from __future__ import annotations
 
@@ -22,10 +25,11 @@ from ..ops.density import static_pack_mat
 from ..scf import init_density
 from ..system import make_system
 from ..utils.timing import timed
+from ._lbfgs import LBFGSState, lbfgs_init, lbfgs_update
 
-_OPTAX_ROUTES = ("the optax-routed L-BFGS (chunk=0 or an explicit "
-                 "linesearch) is not ported yet (M16b); use chunk > 0 with "
-                 "linesearch=None, the warm batched L-BFGS")
+# energy evaluations of the optax-routed L-BFGS (one per objective call:
+# the value and gradient at the current point, and each line-search trial)
+lbfgs_evaluations = 0
 
 
 def _inputs(const, species, coordinates, charges):
@@ -338,30 +342,164 @@ def make_lbfgs_warm(const: Constants, tables, cfg: SEQMConfig, species,
     return init, run
 
 
+def _objective(const, tables, cfg, species, learned, charges):
+    """The optax routes' objective: x -> (sum of Hf over the batch,
+    pullback to its gradient), each call a cold SCF (no initial guess),
+    the gradient unmasked, as the JAX package's ``value_fn``."""
+    def objective(x):
+        global lbfgs_evaluations
+        lbfgs_evaluations += 1
+        c = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            value = energy(const, tables, cfg, species, c, learned=learned,
+                           charges=charges).Hf.sum()
+
+        def pullback():
+            (g,) = torch.autograd.grad(value, c)
+            return g
+        return value.detach(), pullback
+    return objective
+
+
+LINESEARCHES = ("zoom", "backtracking", "none")
+
+
+def make_lbfgs(const: Constants, tables, cfg: SEQMConfig, species,
+               learned=None, linesearch: str = "zoom",
+               max_linesearch_steps: int = 15, charges=None):
+    """The JAX package's optax-routed L-BFGS: returns (init_fn, step_fn).
+
+    ``init_fn(coords) -> LBFGSState``; ``step_fn(coords, state) ->
+    (new_coords, state, value, max|grad|)``, one outer iteration: the
+    value (sum of Hf) and gradient at ``coords``, the gradient masked to
+    real atoms, then ``optax.lbfgs``'s update with the line search
+    ``linesearch``: "zoom" (optax's default, strong Wolfe with Hager and
+    Zhang's approximate decrease, 20 steps), "backtracking" (Armijo,
+    ``max_linesearch_steps`` steps, the gradient stored at the accepted
+    point) or "none" (the unit step on the preconditioned direction).
+    The whole batch is one vector: one step size for every molecule.
+    """
+    if linesearch not in LINESEARCHES:
+        raise ValueError(f"linesearch must be one of {LINESEARCHES}, got "
+                         f"{linesearch!r}")
+    species, _, charges = _inputs(const, species, None, charges)
+    objective = _objective(const, tables, cfg, species, learned, charges)
+    amask = (species > 0)[..., None]
+    search = None if linesearch == "none" else linesearch
+
+    def init(coords) -> LBFGSState:
+        return lbfgs_init(torch.as_tensor(coords, dtype=const.dtype,
+                                          device=const.device))
+
+    def step(coords, state: LBFGSState):
+        coords = torch.as_tensor(coords, dtype=const.dtype,
+                                 device=const.device)
+        value, pullback = objective(coords)
+        grads = pullback()
+        grads = torch.where(amask, grads, torch.zeros_like(grads))
+        updates, state = lbfgs_update(grads, state, coords, value.item(),
+                                      objective, search,
+                                      max_linesearch_steps)
+        return coords + updates, state, value, grads.abs().max()
+
+    return init, step
+
+
+def make_lbfgs_chunk(const: Constants, tables, cfg: SEQMConfig, species,
+                     chunk: int, force_tol: float = 0.0, learned=None,
+                     linesearch: str = "zoom",
+                     max_linesearch_steps: int = 15, charges=None):
+    """:func:`make_lbfgs`, ``chunk`` outer iterations per call: returns
+    (init_fn, run_fn); ``run_fn(coords, state, done, nit) -> (coords,
+    state, done, nit, value, max|grad|)``.  Once max|grad| <= force_tol
+    the whole state freezes: the iteration that sees it counts in ``nit``
+    but neither moves the geometry nor updates the state, and the rest of
+    the chunk is skipped (it would repeat the frozen point)."""
+    init, step = make_lbfgs(const, tables, cfg, species, learned=learned,
+                            linesearch=linesearch,
+                            max_linesearch_steps=max_linesearch_steps,
+                            charges=charges)
+
+    def run(coords, state: LBFGSState, done: bool, nit: int):
+        value = ferr = None
+        for _ in range(chunk):
+            if done and value is not None:
+                break
+            new_coords, new_state, value, ferr = step(coords, state)
+            stop = done or float(ferr) <= force_tol
+            if not stop:
+                coords, state = new_coords, new_state
+            nit += int(not done)
+            done = stop
+        return coords, state, done, nit, value, ferr
+
+    return init, run
+
+
 def geometry_optimize_lbfgs(
     const: Constants, tables, cfg: SEQMConfig, species, coordinates,
     force_tol: float = 1.0e-4, max_evl: int = 300, learned=None,
     log: bool = False, linesearch: Optional[str] = None, chunk: int = 0,
     charges=None, timing=None,
 ):
-    """Batched L-BFGS: ``chunk > 0`` with ``linesearch=None`` runs the
-    warm batched L-BFGS (:func:`make_lbfgs_warm`), ``chunk`` iterations
-    between host reads of the convergence flags; returns (coords, max|g|,
-    iterations).  The JAX package's optax routes (``chunk=0``, or an
-    explicit line search) raise NotImplementedError."""
-    if chunk <= 0 or linesearch is not None:
-        raise NotImplementedError(_OPTAX_ROUTES)
-    init, run = make_lbfgs_warm(const, tables, cfg, species, chunk=chunk,
-                                force_tol=force_tol, learned=learned,
-                                charges=charges)
-    state = init(coordinates)
+    """Batched L-BFGS; returns (coords, max|g|, iterations).
+
+    ``chunk > 0`` with ``linesearch=None`` runs the warm batched L-BFGS
+    (:func:`make_lbfgs_warm`), ``chunk`` iterations between host reads of
+    the convergence flags; ``chunk > 0`` with a line search ("zoom",
+    "backtracking", "none") the optax route in chunks
+    (:func:`make_lbfgs_chunk`); ``chunk=0`` the optax route's host loop
+    (:func:`make_lbfgs`, line search "zoom" unless named), which stops
+    at the first point with max|g| <= force_tol and counts outer
+    iterations (each runs one evaluation plus its line search's)."""
+    if chunk > 0 and linesearch is not None:
+        init, run = make_lbfgs_chunk(const, tables, cfg, species,
+                                     chunk=chunk, force_tol=force_tol,
+                                     learned=learned, linesearch=linesearch,
+                                     charges=charges)
+        coords = torch.as_tensor(coordinates, dtype=const.dtype,
+                                 device=const.device)
+        state, done, nit = init(coords), False, 0
+        ferr = torch.tensor(float("inf"))
+        for _ in range(-(-max_evl // chunk)):
+            with timed(timing, "optimize", const.device):
+                coords, state, done, nit, value, ferr = run(coords, state,
+                                                            done, nit)
+            if log:
+                print(f"{nit} {float(ferr):e} {float(value):e}")
+            if done:
+                break
+        return coords, ferr, nit
+    if chunk > 0:
+        init, run = make_lbfgs_warm(const, tables, cfg, species, chunk=chunk,
+                                    force_tol=force_tol, learned=learned,
+                                    charges=charges)
+        state = init(coordinates)
+        ferr = torch.tensor(float("inf"))
+        for _ in range(-(-max_evl // chunk)):
+            with timed(timing, "optimize", const.device):
+                state, value, ferr = run(state)
+            if log:
+                print(f"{state.nit} {float(ferr):e} {float(value.sum()):e}")
+            if bool(state.done.all()):
+                break
+        nmol, A = state.done.shape[0], state.x.shape[1] // 3
+        return state.x.reshape(nmol, A, 3), ferr, state.nit
+
+    init, step = make_lbfgs(const, tables, cfg, species, learned=learned,
+                            linesearch=linesearch or "zoom", charges=charges)
+    coords = torch.as_tensor(coordinates, dtype=const.dtype,
+                             device=const.device)
+    state = init(coords)
     ferr = torch.tensor(float("inf"))
-    for _ in range(-(-max_evl // chunk)):
+    iters = 0
+    for i in range(max_evl):
         with timed(timing, "optimize", const.device):
-            state, value, ferr = run(state)
+            new_coords, state, value, ferr = step(coords, state)
+        iters = i + 1
         if log:
-            print(f"{state.nit} {float(ferr):e} {float(value.sum()):e}")
-        if bool(state.done.all()):
+            print(f"{i + 1} {float(ferr):e} {float(value):e}")
+        if float(ferr) <= force_tol:
             break
-    nmol, A = state.done.shape[0], state.x.shape[1] // 3
-    return state.x.reshape(nmol, A, 3), ferr, state.nit
+        coords = new_coords
+    return coords, ferr, iters

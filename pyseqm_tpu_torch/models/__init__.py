@@ -1,0 +1,1 @@
+from .energy import SEQMConfig, energy, force, hamiltonian  # noqa: F401

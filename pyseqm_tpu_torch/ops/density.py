@@ -453,7 +453,11 @@ def _sp2_prep(sys: System, F: torch.Tensor, tight_bounds: bool,
         hN = torch.minimum(hN, sigma + r)
     Fp = _set_diag(Fm, torch.where(pad, hN[:, None], dg))
     eye = torch.eye(Fm.shape[-1], dtype=dtype, device=F.device)
-    a0 = (eye * hN[:, None, None] - Fp) / (hN - h1)[:, None, None]
+    # a molecule without orbitals (a padding row of species 0) has F = 0
+    # and h1 = hN = 0: its a0 is 0, not 0/0, so it purifies to P = 0
+    width = hN - h1
+    width = torch.where(width > 0, width, torch.ones_like(width))
+    a0 = (eye * hN[:, None, None] - Fp) / width[:, None, None]
     return a0.contiguous(), sys.nocc.to(dtype), mout, unpack, kernel
 
 

@@ -133,7 +133,8 @@ def test_port_imports_no_jax():
     under tools/."""
     mods = ["pyseqm_tpu_torch." + m for m in (
         "models.ml", "models.hipnn", "utils.check", "utils.checkpoint",
-        "utils.io", "utils.timing", "compat")]
+        "utils.io", "utils.timing", "compat", "drivers._lbfgs",
+        "parallel.sharding")]
     code = ("import sys, pkgutil, importlib, pyseqm_tpu_torch, chip_smoke;"
             "[importlib.import_module(m.name) for m in pkgutil.walk_packages("
             "pyseqm_tpu_torch.__path__, 'pyseqm_tpu_torch.')];"

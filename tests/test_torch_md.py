@@ -51,10 +51,12 @@ def _setup(golden):
 
 @functools.lru_cache(maxsize=None)
 def _jax_force(species):
+    # int32 species: the program of tests/test_md.py's and
+    # test_torch_opt.py's SD force on this batch, compiled once for all
     return jopt._force_fn(pq.make_constants(dtype=jnp.float64),
                           pq.load_element_tables("AM1", dtype=jnp.float64),
                           pq.SEQMConfig(method="AM1", scf=JSCFConfig(**SCF)),
-                          jnp.asarray(species), None)
+                          jnp.asarray(species, jnp.int32), None)
 
 
 @pytest.fixture

@@ -5,12 +5,11 @@ logic against the JAX package's ``make_lbfgs_warm`` on a cheap analytic
 surface (the module-level ``energy`` of both driver modules patched inside
 the test) whose molecules take a plain descent, a forced accept and the
 freeze after repeated forced accepts; the port's L-BFGS on the real energy
-(the H3O+/NH4+/OH- ions); and the optax routes' refusal."""
+(the H3O+/NH4+/OH- ions).  The optax routes are in test_torch_lbfgs.py."""
 from typing import NamedTuple
 
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 import pyseqm_tpu as pq
@@ -46,7 +45,9 @@ def test_steepest_descent_matches_jax(golden):
     route's whole-batch freeze ends where the host loop stops; one step of
     SD with line search against JAX's."""
     sp, co, port, ref = _am1(golden)
-    jsp, jco = jnp.asarray(sp), jnp.asarray(co)
+    # int32 species, as tests/test_md.py's _setup: the JAX force program
+    # is then the one of its SD tests, compiled once for both files
+    jsp, jco = jnp.asarray(sp, jnp.int32), jnp.asarray(co)
     xj, fj, ej = jopt.geometry_optimize_sd(*ref, jsp, jco, alpha=0.004,
                                            force_tol=0.0, max_evl=12)
     xa, fa, ea = topt.geometry_optimize_sd(*port, sp, co, alpha=0.004,
@@ -170,15 +171,3 @@ def test_lbfgs_relaxes_ions(golden):
     E1 = pt.energy(const, tables, cfg, g["species"], x,
                    charges=g["charges"]).Hf
     assert bool((E1 <= E0 + 1e-10).all())
-
-
-@pytest.mark.parametrize("kw", [dict(), dict(chunk=10, linesearch="zoom"),
-                                dict(linesearch="none")])
-def test_optax_routes_raise(kw):
-    """chunk=0 (the JAX default) and an explicit line search are the optax
-    routes: not ported (M16b), and never silently the warm L-BFGS."""
-    const, tables, cfg = pt.build("AM1", dtype=torch.float64, device=CPU)
-    sp = np.array([[8, 1, 1]])
-    co = torch.zeros((1, 3, 3), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="M16b"):
-        topt.geometry_optimize_lbfgs(const, tables, cfg, sp, co, **kw)
