@@ -3026,25 +3026,31 @@ def phase_lbfgs_optax(card):
     k1 = n[0]
     k3 = list(n[2:])
     for route in ("backtracking", "none", "chunk"):
+        # sum(Hf) at the ends is read outside the counted, timed window
+        if route == "chunk":
+            cinit, run = opt.make_lbfgs_chunk(*small[:4],
+                                              chunk=OPTAX_SMALL_ITERS)
+            v0 = float(pt_energy_sum(small, small[4]))
+        else:
+            sinit, sstep = opt.make_lbfgs(*small[:4], linesearch=route)
+        sync()
         opt.lbfgs_evaluations = 0
         kernels_reset()
         t0 = time.perf_counter()
         if route == "chunk":
-            cinit, run = opt.make_lbfgs_chunk(*small[:4],
-                                              chunk=OPTAX_SMALL_ITERS)
-            x0 = small[4]
-            v0 = float(pt_energy_sum(small, x0))
-            x, st, _, nit, value, _ = run(x0, cinit(x0), False, 0)
-            values, failed = [v0, st.value], int(st.failed)
-            check(nit == OPTAX_SMALL_ITERS, f"chunked route: nit {nit}")
+            x, st, _, nit, value, _ = run(small[4], cinit(small[4]), False,
+                                          0)
         else:
-            sinit, sstep = opt.make_lbfgs(*small[:4], linesearch=route)
             x, st, values, failed, _ = optax_iterations(
                 sstep, sinit(small[4]), small[4], OPTAX_SMALL_ITERS)
-            values.append(float(pt_energy_sum(small, x)))
         sync()
         dt = time.perf_counter() - t0
         m = kernel_counts()
+        if route == "chunk":
+            values, failed = [v0, st.value], int(st.failed)
+            check(nit == OPTAX_SMALL_ITERS, f"chunked route: nit {nit}")
+        else:
+            values.append(float(pt_energy_sum(small, x)))
         k1 += m[0]
         k3 = [a + b for a, b in zip(k3, m[2:])]
         fin = bool(torch.isfinite(x).all()) and bool(np.isfinite(values)
@@ -3088,63 +3094,37 @@ def pt_energy_sum(setup, x):
         return pt.energy(const, tables, cfg, species, x).Hf.sum()
 
 
-def sharded_rank(rank, world, port, out, device, nreal, steps):
+def sharded_rank(rank, out, device, nreal, steps):
     """A rank of phase 36's gloo group on one card: ``steps`` sharded
     XL-SP2 steps of its block of the first ``nreal`` headline molecules,
-    padded to a multiple of the group; rank 0 saves the gathered
-    state."""
+    padded to a multiple of the group; rank 0 saves the gathered state
+    and the kernel launches of the steps, summed over the ranks."""
     import torch.distributed as dist
     from pyseqm_tpu_torch import parallel
     from pyseqm_tpu_torch.drivers.md import MDConfig
     from pyseqm_tpu_torch.drivers.xlbomd import XLBOMD
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world)
-    try:
-        mesh = parallel.molecule_mesh(device=device)
-        const, tables, cfg, species, coords = headline_setup(
-            nreal, torch.float32, 1.0e-5, 1.0e-4, device=device)
-        psp, pco, _, _ = parallel.pad_to_mesh(mesh, species, coords)
-        ssp, sco = parallel.shard_molecules(mesh, (psp, pco))
-        md = XLBOMD(const, tables, cfg, MDConfig(timestep=0.4), k=5)
-        st = md.initialize(ssp, sco, velocities=torch.zeros_like(sco),
-                           initial_force=False)
-        step = parallel.sharded_xlbomd_step(md, mesh)
-        for _ in range(steps):
-            st, _ = step(ssp, st)
-        whole = parallel.gather_molecules(mesh, st)
-        if rank == 0:
-            torch.save({f.name: (getattr(whole, f.name).cpu()
-                                 if torch.is_tensor(getattr(whole, f.name))
-                                 else getattr(whole, f.name))
-                        for f in dataclasses.fields(whole)}, out)
-    finally:
-        dist.destroy_process_group()
-
-
-def free_port():
-    import socket
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def run_ranks(fn, world, args, timeout):
-    """Spawn ``world`` processes running fn(rank, world, *args), join them
-    within ``timeout`` seconds, and stop them all if one fails or the
-    time runs out."""
-    import torch.multiprocessing as mp
-    ctx = mp.start_processes(fn, args=(world,) + tuple(args), nprocs=world,
-                             join=False, start_method="spawn")
-    deadline = time.perf_counter() + timeout
-    try:
-        while not ctx.join(timeout=5):
-            check(time.perf_counter() < deadline,
-                  f"ranks did not finish within {timeout} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-                p.join()
+    mesh = parallel.molecule_mesh(device=device)
+    const, tables, cfg, species, coords = headline_setup(
+        nreal, torch.float32, 1.0e-5, 1.0e-4, device=device)
+    psp, pco, _, _ = parallel.pad_to_mesh(mesh, species, coords)
+    ssp, sco = parallel.shard_molecules(mesh, (psp, pco))
+    md = XLBOMD(const, tables, cfg, MDConfig(timestep=0.4), k=5)
+    st = md.initialize(ssp, sco, velocities=torch.zeros_like(sco),
+                       initial_force=False)
+    step = parallel.sharded_xlbomd_step(md, mesh)
+    kernels_reset()
+    for _ in range(steps):
+        st, _ = step(ssp, st)
+    launches = torch.tensor(kernel_counts())
+    dist.all_reduce(launches)
+    whole = parallel.gather_molecules(mesh, st)
+    if rank == 0:
+        torch.save({"state": {f.name: (getattr(whole, f.name).cpu()
+                                       if torch.is_tensor(getattr(whole,
+                                                                  f.name))
+                                       else getattr(whole, f.name))
+                              for f in dataclasses.fields(whole)},
+                    "launches": launches.tolist()}, out)
 
 
 def phase_sharded(card, main_sps):
@@ -3244,10 +3224,14 @@ def phase_sharded(card, main_sps):
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "ranks.pt")
         t0 = time.perf_counter()
-        run_ranks(sharded_rank, SHARD_RANKS,
-                  (free_port(), out, DEV, SHARD_REAL, SHARD_GLOO_STEPS), 600)
+        sharding.spawn_ranks(sharded_rank, SHARD_RANKS,
+                             (out, DEV, SHARD_REAL, SHARD_GLOO_STEPS),
+                             timeout=600)
         t_ranks = time.perf_counter() - t0
-        got = torch.load(out)
+        saved = torch.load(out)
+    got, g = saved["state"], saved["launches"]
+    k1 += g[0]
+    k3 = [a + b for a, b in zip(k3, g[2:])]
     # one process: the whole real batch, and each rank's block alone
     const, tables, cfg, species, coords = headline_setup(
         SHARD_REAL, torch.float32, 1.0e-5, 1.0e-4)
@@ -3259,7 +3243,6 @@ def phase_sharded(card, main_sps):
     psp = torch.cat([species, species.new_zeros((pad,) + species.shape[1:])])
     pco = torch.cat([coords, coords.new_zeros((pad,) + coords.shape[1:])])
     blk = padded // SHARD_RANKS
-    kernels_reset()
     refs = {}
     for name, (a, b) in [("whole", (0, SHARD_REAL))] + [
             (f"block {r}", (r * blk, (r + 1) * blk))
@@ -3270,9 +3253,6 @@ def phase_sharded(card, main_sps):
         for _ in range(SHARD_GLOO_STEPS):
             st, _ = md.step(sp_, st)
         refs[name] = st
-    r = kernel_counts()
-    k1 += r[0]
-    k3 = [a + b for a, b in zip(k3, r[2:])]
     axes = parallel.xlbomd_state_specs()
     rel, blocks_equal, pad_finite = {}, True, True
     for f in ("coordinates", "velocities", "acc", "D", "P", "Pt", "E0"):
@@ -3287,7 +3267,8 @@ def phase_sharded(card, main_sps):
     print(f"[36 sharded gloo] {SHARD_RANKS} ranks, gloo, CUDA tensors on "
           f"one card: {SHARD_REAL} molecules padded to {padded}, "
           f"{SHARD_GLOO_STEPS} XL steps ({t_ranks:.1f} s with the ranks' "
-          f"start) | gathered against one process's run of each rank's "
+          f"start; K1 {g[0]} K3 fwd {g[2]} bwd {g[3]}, both ranks) | "
+          f"gathered against one process's run of each rank's "
           f"block: bit for bit {blocks_equal} | against its run of the "
           f"whole batch, max |d| / max |value| "
           + " ".join(f"{k} {v:.1e}" for k, v in rel.items())
@@ -3297,10 +3278,12 @@ def phase_sharded(card, main_sps):
           "process's run of the same blocks")
     check(max(rel.values()) <= TOL_SHARD_REL, f"sharded gloo: {rel}")
     check(pad_finite, "sharded gloo: non-finite padding")
+    check(g[0] > 0 and g[2] > 0 and g[3] > 0, f"sharded gloo launches {g}")
     return {"steps_per_s": sps, "main_path_steps_per_s": main_sps,
             "train_s": dt, "train_losses": losses,
             "all_reduce_calls": reduces, "gloo_blocks_bit_for_bit":
             blocks_equal, "gloo_whole_max_rel_diff": rel, "gloo_s": t_ranks,
+            "gloo_launches": g,
             "k1_launches": k1, "k2_launches": k2, "k3_launches": tuple(k3)}
 
 

@@ -446,31 +446,16 @@ def geometry_optimize_lbfgs(
 
     ``chunk > 0`` with ``linesearch=None`` runs the warm batched L-BFGS
     (:func:`make_lbfgs_warm`), ``chunk`` iterations between host reads of
-    the convergence flags; ``chunk > 0`` with a line search ("zoom",
-    "backtracking", "none") the optax route in chunks
-    (:func:`make_lbfgs_chunk`); ``chunk=0`` the optax route's host loop
+    the convergence flags; otherwise the optax route's host loop
     (:func:`make_lbfgs`, line search "zoom" unless named), which stops
     at the first point with max|g| <= force_tol and counts outer
-    iterations (each runs one evaluation plus its line search's)."""
-    if chunk > 0 and linesearch is not None:
-        init, run = make_lbfgs_chunk(const, tables, cfg, species,
-                                     chunk=chunk, force_tol=force_tol,
-                                     learned=learned, linesearch=linesearch,
-                                     charges=charges)
-        coords = torch.as_tensor(coordinates, dtype=const.dtype,
-                                 device=const.device)
-        state, done, nit = init(coords), False, 0
-        ferr = torch.tensor(float("inf"))
-        for _ in range(-(-max_evl // chunk)):
-            with timed(timing, "optimize", const.device):
-                coords, state, done, nit, value, ferr = run(coords, state,
-                                                            done, nit)
-            if log:
-                print(f"{nit} {float(ferr):e} {float(value):e}")
-            if done:
-                break
-        return coords, ferr, nit
-    if chunk > 0:
+    iterations (each runs one evaluation plus its line search's).  With
+    ``chunk > 0`` and a line search ("zoom", "backtracking", "none") it
+    runs whole chunks of ``chunk`` iterations, ``max_evl`` rounded up:
+    what the JAX package's chunked route (:func:`make_lbfgs_chunk`)
+    returns, whose scan saves host reads that an eager loop makes
+    anyway."""
+    if chunk > 0 and linesearch is None:
         init, run = make_lbfgs_warm(const, tables, cfg, species, chunk=chunk,
                                     force_tol=force_tol, learned=learned,
                                     charges=charges)
@@ -485,6 +470,10 @@ def geometry_optimize_lbfgs(
                 break
         nmol, A = state.done.shape[0], state.x.shape[1] // 3
         return state.x.reshape(nmol, A, 3), ferr, state.nit
+    if chunk > 0:
+        # the chunked optax route: the host loop below in whole chunks
+        # (make_lbfgs_chunk's freeze and count are the host loop's stop)
+        max_evl = -(-max_evl // chunk) * chunk
 
     init, step = make_lbfgs(const, tables, cfg, species, learned=learned,
                             linesearch=linesearch or "zoom", charges=charges)

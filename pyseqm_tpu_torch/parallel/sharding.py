@@ -22,7 +22,8 @@ from __future__ import annotations
 import dataclasses
 import os
 import socket
-from typing import Optional, Sequence
+import time
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -46,10 +47,45 @@ class MoleculeMesh:
     backend: str
 
 
-def _free_port() -> int:
+def free_port() -> int:
+    """A free TCP port on localhost, for a group's rendezvous."""
     with socket.socket() as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]
+
+
+def _rank_main(rank, fn, world, port, backend, args):
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        fn(rank, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(fn: Callable, world: int, args=(), backend: str = "gloo",
+                timeout: Optional[float] = None):
+    """Run ``fn(rank, *args)`` in ``world`` spawned processes, joined in a
+    ``backend`` group on a free localhost port (the default group of each,
+    so :func:`molecule_mesh` finds it).  ``fn`` must be importable by name
+    from a module the children can import.  Returns when every rank has
+    returned; raises if one fails or ``timeout`` seconds pass, and stops
+    the ranks still running."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(_rank_main, args=(fn, world, free_port(),
+                                               backend, tuple(args)),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = None if timeout is None else time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=5):
+            if deadline is not None and time.monotonic() > deadline:
+                raise TimeoutError(f"{world} ranks did not finish within "
+                                   f"{timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
 
 
 def molecule_mesh(devices: Optional[Sequence] = None, group=None,
@@ -88,7 +124,7 @@ def molecule_mesh(devices: Optional[Sequence] = None, group=None,
             dist.init_process_group(backend, init_method="env://")
         else:
             dist.init_process_group(
-                backend, init_method=f"tcp://localhost:{_free_port()}",
+                backend, init_method=f"tcp://localhost:{free_port()}",
                 rank=0, world_size=1)
     size = dist.get_world_size(group)
     if devices is not None and len(devices) != size:

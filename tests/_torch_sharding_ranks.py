@@ -55,17 +55,9 @@ def xl_start(md, species, coords):
                          initial_force=False)
 
 
-def run(rank, world, port, out, golden):
+def run(rank, out, golden):
+    """One rank (spawn_ranks starts the group); rank 0 saves to ``out``."""
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world)
-    try:
-        _run(rank, out, golden)
-    finally:
-        dist.destroy_process_group()
-
-
-def _run(rank, out, golden):
     mesh = molecule_mesh(device=CPU)
     const, tables, cfg, sp, co = setup()
     res = {"size": mesh.size}

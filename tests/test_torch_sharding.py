@@ -9,21 +9,19 @@ tests/test_sharding.py, the training step to the JAX package's
 molecule is inert on the SP2 path (the JAX package's SP2 gives it
 Hf = nan) and the mesh refuses a CUDA device without a GPU."""
 import os
-import socket
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import torch.multiprocessing as mp
 
 import pyseqm_tpu as pq
 import pyseqm_tpu_torch as pt
 from pyseqm_tpu.parallel import make_train_step as jmake_train_step
 from pyseqm_tpu.parallel import molecule_mesh as jmolecule_mesh
 from pyseqm_tpu.scf import SCFConfig as JSCFConfig
-from pyseqm_tpu_torch.parallel import molecule_mesh
+from pyseqm_tpu_torch.parallel import molecule_mesh, spawn_ranks
 from pyseqm_tpu_torch.scf import SCFConfig
 from pyseqm_tpu_torch.utils.molecules import make_batch
 
@@ -38,18 +36,11 @@ def _np(x):
     return np.asarray(x.detach().cpu() if torch.is_tensor(x) else x)
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 @pytest.fixture(scope="module")
 def sharded(tmp_path_factory):
     """What rank 0 of the two-rank gloo group saved."""
     out = str(tmp_path_factory.mktemp("ranks") / "results.pt")
-    mp.start_processes(ranks.run, args=(2, _free_port(), out, GOLDEN),
-                       nprocs=2, start_method="spawn")
+    spawn_ranks(ranks.run, 2, (out, GOLDEN))
     return torch.load(out, weights_only=False)
 
 
