@@ -42,10 +42,13 @@ def _np(x):
 @functools.lru_cache(maxsize=None)
 def jax_water_hessian():
     """JAX's 9x9 water Hessian through the mode-2 SCF, forward over
-    reverse: one jitted jvp of jax.grad(Hf), called once per coordinate
-    direction.  The same derivative as jax.jacfwd(jax.grad(Hf)), whose
-    vmap over the 9 tangents doubles the XLA compile (277 s against 147 s
-    cold on the CPU)."""
+    reverse: the very program of
+    tests/test_second_order.py::test_hessian_subblock_symmetry_default
+    (jit of jax.jacfwd(jax.grad(Hf)) on the same constants, species and
+    configuration), so the persistent compilation cache serves whichever
+    of the two runs second: one compile (~280 s cold on the CPU) for both
+    files, where a jitted jvp column here (~150 s) came on top of that
+    test's."""
     jc = pq.make_constants(dtype=jnp.float64)
     jt = pq.load_element_tables("AM1", dtype=jnp.float64)
     cfg = pq.SEQMConfig(method="AM1", scf=JSCFConfig(**WATER_SCF))
@@ -53,10 +56,8 @@ def jax_water_hessian():
 
     def hf(c):
         return jnp.sum(pq.energy(jc, jt, cfg, sp, c).Hf)
-    column = jax.jit(lambda c, t: jax.jvp(jax.grad(hf), (c,), (t,))[1])
-    c0 = jnp.asarray(WATER_CO)
-    return np.stack([np.asarray(column(c0, jnp.asarray(e))).reshape(-1)
-                     for e in np.eye(9).reshape(9, 1, 3, 3)], axis=1)
+    H = jax.jit(jax.jacfwd(jax.grad(hf)))(jnp.asarray(WATER_CO))
+    return np.asarray(H).reshape(9, 9)
 
 
 def port_hessian(dtype, remat=None):
