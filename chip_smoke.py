@@ -30,7 +30,10 @@ line is printed):
 4. the XL-SP2 path at full width: 10,240 molecules x 8 atoms, AM1 float32,
    one bootstrap SCF (DIIS, SP2) then XL-BOMD (k=5, 0.4 fs) through the
    entry points build -> XLBOMD.initialize -> XLBOMD.step: steps/s, kernel
-   launches, a one-step CUDA-event breakdown and the energy drift;
+   launches, device ms per program span of three profiled steps (the
+   port's own span record, read as portbench/pbench/spans.py reads it;
+   at least 99% of the device time charged to a span) and the energy
+   drift;
 5. K1's time on that path's own input against its bound (device time
    alone, ``device_ms``);
 6. measurements that say where the step's time goes (not checked): kernel
@@ -700,61 +703,21 @@ def headline_setup(nmol, dtype, scf_eps, sp2_eps, use_sp2=True, pack=True,
     return const, tables, cfg, species, coords
 
 
-def step_breakdown(md, species, state):
-    """One XL step replayed stage by stage (the code of XLBOMD.step and
-    models.xlbomd.energy_xl) with CUDA events between the stages."""
-    import dataclasses
-    from pyseqm_tpu_torch.drivers.md import ACC_SCALE, atom_masses
-    from pyseqm_tpu_torch.models.energy import (_atom_parameters,
-                                                _integral_stack,
-                                                _nuclear_term, _packed_layout)
-    from pyseqm_tpu_torch.ops.density import sp2
-    from pyseqm_tpu_torch.ops.energy import (assemble_energies,
-                                             elec_energy_isolated_atom,
-                                             elec_energy_xl_tf)
-    from pyseqm_tpu_torch.ops.fock import fock_packed_split
-    from pyseqm_tpu_torch.system import make_system
-    cfg, const, tables = md.seqm_cfg, md.const, md.tables
-    names = ["driver_pre", "hcore", "fock", "sp2", "energy", "backward",
-             "driver_post"]
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
-    sync()
-    ev[0].record()
-    dt = md.md_cfg.timestep
-    mass = atom_masses(const, species)
-    v = state.velocities + 0.5 * state.acc * dt
-    x = state.coordinates + v * dt
-    cindx = state.step % md.m
-    P = md.coeff_D * state.D + torch.einsum(
-        'k,knij->nij', md.coeff[cindx:cindx + md.m], state.Pt)
-    ev[1].record()
-    K, n_st = _packed_layout(cfg, species.shape[1])
-    coords = x.detach().requires_grad_(True)
-    sys_ = make_system(const, species, coords, None, cfg.pair_outer_cutoff,
-                       heavy_count=K)
-    p = _atom_parameters(tables, cfg.method, sys_, None, coords)
-    M, w, _ = _integral_stack(const, sys_, p, cfg, packed_m=n_st)
-    ev[2].record()
-    F = fock_packed_split(sys_, P, M, w, p, K, n_st)
-    ev[3].record()
-    with torch.no_grad():
-        D = sp2(sys_, F.detach(), cfg.scf.sp2_eps, cfg.scf.sp2_tight_bounds,
-                pack_heavy=K, prepacked=True)
-    ev[4].record()
-    EnucAB, mask = _nuclear_term(const, sys_, w, cfg, p)
-    Eiso = elec_energy_isolated_atom(const, sys_.species, p)
-    Hf = assemble_energies(const, sys_, elec_energy_xl_tf(D, P, F, M),
-                           EnucAB, Eiso, cfg.hf_flag, pair_mask=mask)[0]
-    ev[5].record()
-    (g,) = torch.autograd.grad(Hf.sum(), coords)
-    ev[6].record()
-    acc = -g / mass * ACC_SCALE
-    v = v + 0.5 * acc * dt
-    _ = dataclasses.replace(state, coordinates=x, velocities=v, acc=acc, D=D,
-                            P=P)
-    ev[7].record()
-    sync()
-    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+def span_breakdown(md, species, state):
+    """(device ms, idle ms) per program span of one XL step under
+    torch.profiler, and the share of the device time charged to a span:
+    each kernel charged to the innermost span of the port's record open
+    when it was launched (portbench/pbench/spans.py).  The step runs on a
+    copy of the history, which it updates in place."""
+    sys.path.insert(0, os.path.join(HERE, "portbench"))
+    from pbench import spans, trace
+    from pyseqm_tpu_torch.utils import timing
+    state = dataclasses.replace(state, Pt=state.Pt.clone())
+    timing.reset()
+    sess = trace.record(lambda: (md.step(species, state), sync()), 1)
+    table = spans.Attribution(sess, timing.spans()).table()
+    timing.reset()
+    return table
 
 
 def phase_main_path(card):
@@ -815,11 +778,22 @@ def phase_main_path(card):
     check(k3_step == [2.0, 2.0], f"K3 launches per XL step {k3_step}, "
           "expected 2 forward (Coulomb, exchange) and 2 backward")
 
-    bd = [step_breakdown(md, species, state) for _ in range(3)]
-    parts = {k: float(np.median([b[k] for b in bd])) for k in bd[0]}
+    bd = [span_breakdown(md, species, state) for _ in range(3)]
+    names = sorted({k for b in bd for k in b if k != "total"})
+    parts = {k: float(np.median([b.get(k, {}).get("device_ms", 0.0)
+                                 for b in bd])) for k in names}
+    idle = {k: float(np.median([b.get(k, {}).get("idle_ms", 0.0)
+                                for b in bd])) for k in names}
+    share = min(b["total"]["attributed_share"] or 0.0 for b in bd)
     print("[4 breakdown ms] " + " ".join(f"{k} {v:.3f}" for k, v in
                                          parts.items())
-          + f" | sum {sum(parts.values()):.3f}", flush=True)
+          + f" | sum {sum(parts.values()):.3f} of "
+          f"{np.median([b['total']['device_ms'] for b in bd]):.3f} device "
+          f"ms, charged share {share:.4f} | idle ms "
+          + " ".join(f"{k} {v:.3f}" for k, v in idle.items() if v),
+          flush=True)
+    check(share >= 0.99, f"only {share:.4f} of a step's device time was "
+          "charged to a program span")
     return (md, species, state, main_launches, sps, parts, per_mol, k3_main,
             k3_step)
 
@@ -3618,7 +3592,7 @@ def main():
     k3f["timer_cross_check"] = timer_check
     k3f["launches_per_xl_step"], k3b["launches_per_xl_step"] = k3_step
     print(json.dumps({"main_path": {"steps_per_s": sps,
-                                    "step_breakdown_ms": parts},
+                                    "span_breakdown_ms": parts},
                       "scf_eigh": scf_eigh, "eig_true": eig_acc,
                       "xlbomd_eigh": xl_eigh, "flat_default": flat,
                       "nanostar_packed": nano_pk,

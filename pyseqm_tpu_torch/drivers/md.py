@@ -20,7 +20,7 @@ import torch
 from ..constants import Constants
 from ..models.energy import SEQMConfig, _species_tensor, check_species, force
 from ..utils import io as xyz_io
-from ..utils.timing import timed
+from ..utils.timing import span, timed
 
 # Unit conversions (MolecularDynamics.py:438-490):
 # 1 (eV/Angstrom)/(g/mol) = 0.009648... Angstrom/fs^2
@@ -188,22 +188,24 @@ class MolecularDynamics:
 
     def step(self, species, state: MDState,
              charges=None) -> Tuple[MDState, Observables]:
-        species = self._species(species)
-        dt = self.md_cfg.timestep
-        mass = atom_masses(self.const, species)
+        with span("md.step"):
+            species = self._species(species)
+            dt = self.md_cfg.timestep
+            mass = atom_masses(self.const, species)
 
-        v = state.velocities + 0.5 * state.acc * dt
-        x = state.coordinates + v * dt
-        st1 = dataclasses.replace(state, coordinates=x, velocities=v)
-        f, P, Epot = self.compute_force(species, st1, charges)
-        acc = f / mass * ACC_SCALE
-        v = v + 0.5 * acc * dt
-        state = dataclasses.replace(state, coordinates=x, velocities=v,
-                                    acc=acc, P=P, step=state.step + 1)
-        state = self._thermostat(species, state, Epot)
-        Ek, T = kinetic_energy(self.const, species, state.velocities)
-        q = atomic_charges(self.const, species, state.P)
-        return state, Observables(Ek, T, Epot, dipole(q, state.coordinates), q)
+            v = state.velocities + 0.5 * state.acc * dt
+            x = state.coordinates + v * dt
+            st1 = dataclasses.replace(state, coordinates=x, velocities=v)
+            f, P, Epot = self.compute_force(species, st1, charges)
+            acc = f / mass * ACC_SCALE
+            v = v + 0.5 * acc * dt
+            state = dataclasses.replace(state, coordinates=x, velocities=v,
+                                        acc=acc, P=P, step=state.step + 1)
+            state = self._thermostat(species, state, Epot)
+            Ek, T = kinetic_energy(self.const, species, state.velocities)
+            q = atomic_charges(self.const, species, state.P)
+            return state, Observables(Ek, T, Epot,
+                                      dipole(q, state.coordinates), q)
 
     def _thermostat(self, species, state, Epot):
         cfg = self.md_cfg
@@ -388,14 +390,15 @@ class NoseHooverDynamics(MolecularDynamics):
         return NHState(base=base, vxi=torch.stack([v0, v1], dim=1), xi=xi)
 
     def step(self, species, st: NHState, charges=None):
-        species = self._species(species)
-        dt = self.md_cfg.timestep
-        st = self._nhc_half(species, st, dt)
-        base, obs = super().step(species, st.base, charges)
-        st = self._nhc_half(species, NHState(base, st.vxi, st.xi), dt)
-        # Ek/T of the returned (post-thermostat) velocities
-        Ek, T = kinetic_energy(self.const, species, st.base.velocities)
-        return st, obs._replace(Ek=Ek, T=T)
+        with span("md.step"):
+            species = self._species(species)
+            dt = self.md_cfg.timestep
+            st = self._nhc_half(species, st, dt)
+            base, obs = super().step(species, st.base, charges)
+            st = self._nhc_half(species, NHState(base, st.vxi, st.xi), dt)
+            # Ek/T of the returned (post-thermostat) velocities
+            Ek, T = kinetic_energy(self.const, species, st.base.velocities)
+            return st, obs._replace(Ek=Ek, T=T)
 
 
 class LangevinDynamics(MolecularDynamics):

@@ -24,6 +24,7 @@ from ..constants import Constants
 from ..models.energy import SEQMConfig, _packed_layout, energy
 from ..models.xlbomd import force_xl
 from ..ops.density import static_pack_mat
+from ..utils.timing import span
 from .md import (ACC_SCALE, MDConfig, MDState, MolecularDynamics,
                  Observables, atom_masses, atomic_charges,
                  atomic_charges_packed, dipole, kinetic_energy)
@@ -107,32 +108,37 @@ class XLBOMD(MolecularDynamics):
                            Pt=Pt, E0=st.E0, step=0)
 
     def step(self, species, state: XLBOMDState, charges=None):
-        species = self._species(species)
-        dt = self.md_cfg.timestep
-        mass = atom_masses(self.const, species)
+        with span("md.step"):
+            species = self._species(species)
+            dt = self.md_cfg.timestep
+            mass = atom_masses(self.const, species)
 
-        v = state.velocities + 0.5 * state.acc * dt
-        x = state.coordinates + v * dt
+            v = state.velocities + 0.5 * state.acc * dt
+            x = state.coordinates + v * dt
 
-        # P <- cc*kappa*D + sum coeff[cindx:cindx+m] * Pt
-        cindx = state.step % self.m
-        cs = self.coeff[cindx:cindx + self.m]
-        P = self.coeff_D * state.D + torch.einsum('k,knij->nij', cs, state.Pt)
-        state.Pt[self.m - 1 - cindx] = P
+            # P <- cc*kappa*D + sum coeff[cindx:cindx+m] * Pt
+            cindx = state.step % self.m
+            cs = self.coeff[cindx:cindx + self.m]
+            P = self.coeff_D * state.D + torch.einsum('k,knij->nij', cs,
+                                                      state.Pt)
+            state.Pt[self.m - 1 - cindx] = P
 
-        packed = _packed_layout(self.seqm_cfg, species.shape[1])
-        f, Epot, D = force_xl(self.const, self.tables, self.seqm_cfg,
-                              species, x, P, self.learned,
-                              charges=self._charges_arg(charges),
-                              packed_io=packed is not None)
-        acc = f / mass * ACC_SCALE
-        v = v + 0.5 * acc * dt
-        state = dataclasses.replace(state, coordinates=x, velocities=v,
-                                    acc=acc, D=D, P=P, step=state.step + 1)
-        state = self._thermostat(species, state, Epot)
+            packed = _packed_layout(self.seqm_cfg, species.shape[1])
+            f, Epot, D = force_xl(self.const, self.tables, self.seqm_cfg,
+                                  species, x, P, self.learned,
+                                  charges=self._charges_arg(charges),
+                                  packed_io=packed is not None)
+            acc = f / mass * ACC_SCALE
+            v = v + 0.5 * acc * dt
+            state = dataclasses.replace(state, coordinates=x, velocities=v,
+                                        acc=acc, D=D, P=P,
+                                        step=state.step + 1)
+            state = self._thermostat(species, state, Epot)
 
-        Ek, T = kinetic_energy(self.const, species, state.velocities)
-        q = (atomic_charges(self.const, species, state.P) if packed is None
-             else atomic_charges_packed(self.const, species, state.P,
-                                        packed[0]))
-        return state, Observables(Ek, T, Epot, dipole(q, state.coordinates), q)
+            Ek, T = kinetic_energy(self.const, species, state.velocities)
+            q = (atomic_charges(self.const, species, state.P)
+                 if packed is None else
+                 atomic_charges_packed(self.const, species, state.P,
+                                       packed[0]))
+            return state, Observables(Ek, T, Epot,
+                                      dipole(q, state.coordinates), q)

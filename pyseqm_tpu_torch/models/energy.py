@@ -41,6 +41,7 @@ from ..parameters import gather_atom_parameters, load_element_tables
 from ..scf import SCFConfig, scf_solve
 from ..system import (System, make_system, pair_packed_from_canonical,
                       validate)
+from ..utils.timing import count, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -300,40 +301,48 @@ def energy(const: Constants, tables: Mapping[str, torch.Tensor],
     (backward mode 0, Hellmann-Feynman) or differentiated by the SCF
     adjoint (mode 1) or through the unrolled iterations (mode 2, also
     twice)."""
-    sp = check_species(cfg, tables, species, charges)
-    species = _species_tensor(species, coordinates.device)
-    A = species.shape[1]
-    _, packK = _resolve_pair_layout(cfg, A)
-    packed = _packed_layout(cfg, A)
-    sys = make_system(const, species, coordinates, charges,
-                      cfg.pair_outer_cutoff, heavy_count=packK,
-                      species_host=sp)
-    p = _atom_parameters(tables, cfg.method, sys, learned, coordinates)
-    Kbeta, g_ss_nuc = _learned_hooks(p)
+    with span("system"):
+        sp = check_species(cfg, tables, species, charges)
+        species = _species_tensor(species, coordinates.device)
+        A = species.shape[1]
+        _, packK = _resolve_pair_layout(cfg, A)
+        packed = _packed_layout(cfg, A)
+        sys = make_system(const, species, coordinates, charges,
+                          cfg.pair_outer_cutoff, heavy_count=packK,
+                          species_host=sp)
+        p = _atom_parameters(tables, cfg.method, sys, learned, coordinates)
+        Kbeta, g_ss_nuc = _learned_hooks(p)
 
     if packed is not None:
         # the whole fixed point at the static packed size, no relayouts
         K, n_st = packed
-        M, w, _ = _integral_stack(const, sys, p, cfg, packed_m=n_st,
-                                  Kbeta=Kbeta)
+        with span("integrals"):
+            M, w, _ = _integral_stack(const, sys, p, cfg, packed_m=n_st,
+                                      Kbeta=Kbeta)
         Pp, notconverged = scf_solve(const, sys, M, w, p, cfg.scf, P0,
                                      packed=packed)
-        Fp = fock_packed_split(sys, Pp, M, w, p, K, n_st)
-        eel_tf = elec_energy_tf(Pp, Fp, M)
+        with span("fock"):
+            Fp = fock_packed_split(sys, Pp, M, w, p, K, n_st)
+        eel = (Pp, Fp, M)
         P = static_unpack_mat(Pp, K, A)
         F = static_unpack_mat(Fp, K, A)
         H = static_unpack_mat(M, K, A)
     else:
-        M, w, w_f = _integral_stack(const, sys, p, cfg, Kbeta=Kbeta)
+        with span("integrals"):
+            M, w, w_f = _integral_stack(const, sys, p, cfg, Kbeta=Kbeta)
         P, notconverged = scf_solve(const, sys, M, w, p, cfg.scf, P0)
-        F = fock(sys, P, M, w_f, p)
+        with span("fock"):
+            F = fock(sys, P, M, w_f, p)
         H = grid_to_mat(M)
-        eel_tf = elec_energy_tf(P, F, H)
-    gam = None if g_ss_nuc is None else _hook_gamma(sys, g_ss_nuc)
-    EnucAB, enuc_mask = _nuclear_term(const, sys, w, cfg, p, gam)
-    Eiso = elec_energy_isolated_atom(const, sys.species, p)
-    Hf, Etot, Eel, Enuc, Eiso_sum = assemble_energies(
-        const, sys, eel_tf, EnucAB, Eiso, cfg.hf_flag, pair_mask=enuc_mask)
+        eel = (P, F, H)
+    with span("energy"):
+        eel_tf = elec_energy_tf(*eel)
+        gam = None if g_ss_nuc is None else _hook_gamma(sys, g_ss_nuc)
+        EnucAB, enuc_mask = _nuclear_term(const, sys, w, cfg, p, gam)
+        Eiso = elec_energy_isolated_atom(const, sys.species, p)
+        Hf, Etot, Eel, Enuc, Eiso_sum = assemble_energies(
+            const, sys, eel_tf, EnucAB, Eiso, cfg.hf_flag,
+            pair_mask=enuc_mask)
     e = charge = None
     if cfg.eig:
         # with_flag surfaces a molecule whose Jacobi sweeps failed (re-solved
@@ -379,12 +388,16 @@ def force(const: Constants, tables: Mapping[str, torch.Tensor],
           charges=None) -> Tuple[torch.Tensor, EnergyOutput]:
     """Forces -dHf/dR (eV/Angstrom) + energy terms (cf. Force,
     basics.py:348)."""
-    coords = coordinates.detach().requires_grad_(True)
-    with torch.enable_grad():
-        out = energy(const, tables, cfg, species, coords, learned, P0,
-                     charges)
-        (grad,) = torch.autograd.grad(out.Hf.sum(), coords)
-    return -grad, _detach(out)
+    with span("model.force"):
+        count("molecules", coordinates.shape[0])
+        coords = coordinates.detach().requires_grad_(True)
+        with torch.enable_grad():
+            out = energy(const, tables, cfg, species, coords, learned, P0,
+                         charges)
+            Hf = out.Hf.sum()
+            with span("backward"):
+                (grad,) = torch.autograd.grad(Hf, coords)
+        return -grad, _detach(out)
 
 
 def build(method: str = "AM1", dtype=torch.float32, device="cuda",

@@ -26,6 +26,7 @@ from ..ops.energy import (assemble_energies, elec_energy_isolated_atom,
 from ..ops.fock import fock, fock_packed_split
 from ..ops.matrix import grid_to_mat
 from ..system import make_system
+from ..utils.timing import count, span
 from .energy import (LearnedParams, SEQMConfig, _atom_parameters,
                      _hook_gamma, _integral_stack, _learned_hooks,
                      _nuclear_term, _packed_layout, _resolve_pair_layout,
@@ -52,13 +53,14 @@ def energy_xl(const: Constants, tables: Mapping[str, torch.Tensor],
     (density.packed_solver_size) and the returned D stays packed; requires
     the class-segmented dense path (scf.pack_heavy).  Otherwise P and D
     are (nmol, 4A, 4A)."""
-    species = _species_tensor(species, coordinates.device)
-    A = species.shape[1]
-    _, packK = _resolve_pair_layout(cfg, A)
-    sys = make_system(const, species, coordinates, charges,
-                      cfg.pair_outer_cutoff, heavy_count=packK)
-    p = _atom_parameters(tables, cfg.method, sys, learned, coordinates)
-    Kbeta, g_ss_nuc = _learned_hooks(p)
+    with span("system"):
+        species = _species_tensor(species, coordinates.device)
+        A = species.shape[1]
+        _, packK = _resolve_pair_layout(cfg, A)
+        sys = make_system(const, species, coordinates, charges,
+                          cfg.pair_outer_cutoff, heavy_count=packK)
+        p = _atom_parameters(tables, cfg.method, sys, learned, coordinates)
+        Kbeta, g_ss_nuc = _learned_hooks(p)
     scf = cfg.scf
     if packed_io:
         packed = _packed_layout(cfg, A)
@@ -74,10 +76,12 @@ def energy_xl(const: Constants, tables: Mapping[str, torch.Tensor],
         if P.shape[-1] != n_st:
             raise ValueError(f"packed P has n={P.shape[-1]}, expected "
                              f"packed_solver_size={n_st}")
-        M, w, _ = _integral_stack(const, sys, p, cfg, packed_m=n_st,
-                                  Kbeta=Kbeta)
+        with span("integrals"):
+            M, w, _ = _integral_stack(const, sys, p, cfg, packed_m=n_st,
+                                      Kbeta=Kbeta)
         H = M
-        F = fock_packed_split(sys, P, M, w, p, K, n_st)
+        with span("fock"):
+            F = fock_packed_split(sys, P, M, w, p, K, n_st)
         # D is built once from F and held constant (XLBOMD.py:124-128).
         # The eigh branch solves the packed F directly: the JAX package
         # unpacks F, solves with pack_heavy and packs D again, which
@@ -90,9 +94,11 @@ def energy_xl(const: Constants, tables: Mapping[str, torch.Tensor],
                 D = sym_eig(sys, F.detach(), pack_heavy=K,
                             prepacked=True)[1]
     else:
-        M, w, w_f = _integral_stack(const, sys, p, cfg, Kbeta=Kbeta)
+        with span("integrals"):
+            M, w, w_f = _integral_stack(const, sys, p, cfg, Kbeta=Kbeta)
         H = grid_to_mat(M)
-        F = fock(sys, P, M, w_f, p)
+        with span("fock"):
+            F = fock(sys, P, M, w_f, p)
         with torch.no_grad():
             Fd = F.detach()
             if scf.use_sp2:
@@ -106,12 +112,13 @@ def energy_xl(const: Constants, tables: Mapping[str, torch.Tensor],
             else:
                 D = sym_eig(sys, Fd, pack_n=scf.pack_orbitals,
                             pack_heavy=scf.pack_heavy)[1]
-    gam = None if g_ss_nuc is None else _hook_gamma(sys, g_ss_nuc)
-    EnucAB, enuc_mask = _nuclear_term(const, sys, w, cfg, p, gam)
-    Eiso = elec_energy_isolated_atom(const, sys.species, p)
-    Hf, Etot, Eelec, Enuc, Eiso_sum = assemble_energies(
-        const, sys, elec_energy_xl_tf(D, P, F, H), EnucAB, Eiso,
-        cfg.hf_flag, pair_mask=enuc_mask)
+    with span("energy"):
+        gam = None if g_ss_nuc is None else _hook_gamma(sys, g_ss_nuc)
+        EnucAB, enuc_mask = _nuclear_term(const, sys, w, cfg, p, gam)
+        Eiso = elec_energy_isolated_atom(const, sys.species, p)
+        Hf, Etot, Eelec, Enuc, Eiso_sum = assemble_energies(
+            const, sys, elec_energy_xl_tf(D, P, F, H), EnucAB, Eiso,
+            cfg.hf_flag, pair_mask=enuc_mask)
     return XLEnergyOutput(Hf, Etot, Eelec, Enuc, Eiso_sum, EnucAB, D)
 
 
@@ -122,9 +129,13 @@ def force_xl(const: Constants, tables: Mapping[str, torch.Tensor],
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(force, Hf, D): -dHf/dR through the single Fock build
     (cf. ForceXL, XLBOMD.py:189-220); ``packed_io``: see energy_xl."""
-    coords = coordinates.detach().requires_grad_(True)
-    with torch.enable_grad():
-        out = energy_xl(const, tables, cfg, species, coords, P.detach(),
-                        learned, charges, packed_io)
-        (grad,) = torch.autograd.grad(out.Hf.sum(), coords)
-    return -grad, out.Hf.detach(), out.D
+    with span("model.force"):
+        count("molecules", coordinates.shape[0])
+        coords = coordinates.detach().requires_grad_(True)
+        with torch.enable_grad():
+            out = energy_xl(const, tables, cfg, species, coords, P.detach(),
+                            learned, charges, packed_io)
+            Hf = out.Hf.sum()
+            with span("backward"):
+                (grad,) = torch.autograd.grad(Hf, coords)
+        return -grad, out.Hf.detach(), out.D

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as nnf
 
 from ..system import System
+from ..utils.timing import count, span, tracing
 from . import eigh_kernel
 from .eigh_kernel import eigh_batched_checked
 from .sp2_kernel import MAX_N, sp2_purify
@@ -166,6 +167,14 @@ def sym_eig(sys: System, F: torch.Tensor, eig_only: bool = False,
     pack_n rows and columns (pure decoupled padding beyond every molecule's
     norb), so the solve runs at pack_n.
     """
+    with span("density"):
+        count("molecules", F.shape[0])
+        return _sym_eig(sys, F, eig_only, check_degeneracy, pack_n,
+                        pack_heavy, prepacked, with_flag)
+
+
+def _sym_eig(sys, F, eig_only, check_degeneracy, pack_n, pack_heavy,
+             prepacked, with_flag):
     n = F.shape[-1]
     A = sys.species.shape[1]
     n_st = None
@@ -489,15 +498,22 @@ def sp2(sys: System, F: torch.Tensor, eps: float = 1.0e-4,
     ``sort_packing`` and ``panel_out`` are TPU knobs and not ported).
     ``tight_bounds`` refines the Gershgorin bounds by Gelfand squaring.
     """
-    f32 = F.dtype == torch.float32
-    a0, noccd, mout, unpack, kernel = _sp2_prep(sys, F, tight_bounds, pack_n,
-                                                pack_heavy, prepacked)
-    if kernel:
-        P = sp2_purify(a0, noccd, max(eps, 1.0e-5))
-    else:
-        eps = max(eps, 3.0e-4) if f32 else min(max(eps, 1.0e-7), 1.0e-3)
-        P = _sp2_loop(a0, noccd, eps, f32)
-    return unpack(P) * (mout[:, :, None] * mout[:, None, :])
+    with span("density"):
+        count("molecules", F.shape[0])
+        f32 = F.dtype == torch.float32
+        a0, noccd, mout, unpack, kernel = _sp2_prep(
+            sys, F, tight_bounds, pack_n, pack_heavy, prepacked)
+        if kernel and tracing():
+            # the kernel's own per-molecule iteration counts
+            P, iters = sp2_purify(a0, noccd, max(eps, 1.0e-5),
+                                  return_iters=True)
+            count("sp2_iterations", iters)
+        elif kernel:
+            P = sp2_purify(a0, noccd, max(eps, 1.0e-5))
+        else:
+            eps = max(eps, 3.0e-4) if f32 else min(max(eps, 1.0e-7), 1.0e-3)
+            P = _sp2_loop(a0, noccd, eps, f32)
+        return unpack(P) * (mout[:, :, None] * mout[:, None, :])
 
 
 def _subset_system(sys: System, idx: torch.Tensor) -> System:

@@ -31,6 +31,7 @@ import ctypes
 
 import torch
 
+from ..utils.timing import count, tracing
 from . import cuda_build
 
 MAX_SWEEPS = 16
@@ -281,7 +282,13 @@ class JacobiEigh(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, A):
-        e, v, resid = eigh_jacobi(A, with_resid=True)
+        if tracing():
+            # the kernel's own per-molecule sweep counts
+            e, v, resid, sweeps = eigh_jacobi(A, with_resid=True,
+                                              return_sweeps=True)
+            count("eigh_sweeps", sweeps)
+        else:
+            e, v, resid = eigh_jacobi(A, with_resid=True)
         ctx.save_for_backward(e, v)
         ctx.mark_non_differentiable(resid)
         return e, v, resid

@@ -46,6 +46,7 @@ from .ops.density import sp2, static_pack_mat, sym_eig
 from .ops.fock import fock, fock_packed_split
 from .ops.matrix import grid_to_mat
 from .system import System
+from .utils.timing import count, span
 
 SCF_PARAM_NAMES = ("g_ss", "g_pp", "g_sp", "g_p2", "h_sp")
 
@@ -187,11 +188,16 @@ def _layout_fock(sys: System, packed: Optional[Tuple[int, int]]):
     packed core matrix and every iterate lives at n_st; otherwise M is the
     (nmol, A, A, 4, 4) grid and the iterates are (nmol, 4A, 4A)."""
     if packed is None:
-        return (lambda M, w, p, P: fock(sys, P, M, w, p),
-                lambda M: grid_to_mat(M))
+        def fock_of(M, w, p, P):
+            with span("fock"):
+                return fock(sys, P, M, w, p)
+        return fock_of, lambda M: grid_to_mat(M)
     K, n_st = packed
-    return (lambda M, w, p, P: fock_packed_split(sys, P, M, w, p, K, n_st),
-            lambda M: M)
+
+    def fock_of(M, w, p, P):
+        with span("fock"):
+            return fock_packed_split(sys, P, M, w, p, K, n_st)
+    return fock_of, lambda M: M
 
 
 def scf_iterate(sys: System, M: torch.Tensor, w, p: Dict[str, torch.Tensor],
@@ -344,11 +350,20 @@ def _iterate(sys, M, w, p, P0, cfg, packed, differentiable):
     if differentiable:
         for _ in range(cfg.backward_scan_iters):
             st = body(st)
+        count("iterations", st.k)
         return st.P, st.notconverged
 
-    while st.k < cfg.max_iter and bool(st.notconverged.any()):
+    def unconverged():
+        """The host's read of the flags, which waits for the card."""
+        with span("scf.read"):
+            out = bool(st.notconverged.any())
+        count("reads", 1)
+        return out
+
+    while st.k < cfg.max_iter and unconverged():
         for _ in range(_CHUNK):
             st = body(st)
+    count("iterations", st.k)
 
     npolish = cfg.polish_iters
     if npolish is None:
@@ -361,6 +376,7 @@ def _iterate(sys, M, w, p, P0, cfg, packed, differentiable):
         st = dataclasses.replace(st, notconverged=all_on)
         for _ in range(int(npolish)):
             st = dataclasses.replace(phase_adaptive(st), notconverged=all_on)
+        count("polish", int(npolish))
         st = dataclasses.replace(st, notconverged=nc_final)
     return st.P, st.notconverged
 
@@ -487,32 +503,38 @@ def scf_solve(const: Constants, sys: System, M: torch.Tensor, w,
     otherwise M is the block grid and Pconv (nmol, 4A, 4A).  P0 may be
     given in either layout and carries no gradient.
     """
-    pscf = {k: p[k] for k in SCF_PARAM_NAMES}
-    if P0 is None or cfg.backward == 2:
-        P0 = init_density(const, sys)
-    if packed is not None and P0.shape[-1] != packed[1]:
-        P0 = static_pack_mat(P0, packed[0], packed[1])
-    P0 = P0.detach()
-    if cfg.backward == 0:
-        leaves, rebuild = _flatten(w)
-        P, nc = scf_iterate(sys, M.detach(),
-                            rebuild(iter([t.detach() for t in leaves])),
-                            {k: v.detach() for k, v in pscf.items()}, P0,
-                            cfg, packed)
-    elif cfg.backward == 1:
-        leaves, rebuild = _flatten(w)
-        run = _Run(sys, cfg, packed, rebuild, len(leaves), P0)
-        P, nc = _SCFAdjoint.apply(run, M, *leaves,
-                                  *[pscf[k] for k in SCF_PARAM_NAMES])
-    elif cfg.backward == 2:
-        if cfg.converger[0] not in (0, 1):
-            raise ValueError("backward mode 2 requires converger (0, alpha) "
-                             "or (1,)")
-        P, nc = scf_iterate(sys, M, w, pscf, P0, cfg, packed,
-                            differentiable=True)
-    else:
-        raise ValueError(f"unknown backward mode {cfg.backward}")
-    if cfg.raise_on_forward_failure and bool(nc.any()):
-        bad = torch.nonzero(nc).flatten().tolist()
-        raise SCFConvergenceError(f"SCF forward failed for molecules {bad}")
-    return P, nc
+    with span("scf"):
+        pscf = {k: p[k] for k in SCF_PARAM_NAMES}
+        if P0 is None or cfg.backward == 2:
+            P0 = init_density(const, sys)
+        if packed is not None and P0.shape[-1] != packed[1]:
+            P0 = static_pack_mat(P0, packed[0], packed[1])
+        P0 = P0.detach()
+        if cfg.backward == 0:
+            leaves, rebuild = _flatten(w)
+            P, nc = scf_iterate(sys, M.detach(),
+                                rebuild(iter([t.detach() for t in leaves])),
+                                {k: v.detach() for k, v in pscf.items()}, P0,
+                                cfg, packed)
+        elif cfg.backward == 1:
+            leaves, rebuild = _flatten(w)
+            run = _Run(sys, cfg, packed, rebuild, len(leaves), P0)
+            P, nc = _SCFAdjoint.apply(run, M, *leaves,
+                                      *[pscf[k] for k in SCF_PARAM_NAMES])
+        elif cfg.backward == 2:
+            if cfg.converger[0] not in (0, 1):
+                raise ValueError("backward mode 2 requires converger "
+                                 "(0, alpha) or (1,)")
+            P, nc = scf_iterate(sys, M, w, pscf, P0, cfg, packed,
+                                differentiable=True)
+        else:
+            raise ValueError(f"unknown backward mode {cfg.backward}")
+        if cfg.raise_on_forward_failure:
+            with span("scf.read"):
+                failed = bool(nc.any())
+            count("reads", 1)
+            if failed:
+                bad = torch.nonzero(nc).flatten().tolist()
+                raise SCFConvergenceError(
+                    f"SCF forward failed for molecules {bad}")
+        return P, nc
