@@ -9,13 +9,14 @@ line is printed):
 1. card and software: nvidia-smi name and power limit, torch/CUDA/nvcc
    versions; TF32 off;
 2. build: compile every CUDA kernel (csrc/sp2.cu, csrc/eigh.cu,
-   csrc/wapply.cu) from the sources in the checkout, one nvcc per source,
-   started together, and print ptxas's registers and spills per kernel
-   (K3: one line per instantiation; the float32 ones must not spill);
-   then: eigh_jacobi, sp2_purify and the K3 forward and backward (each
-   perm) on CUDA are one device kernel per call (a captured CUDA graph),
-   and the device-only timer against torch.profiler's kernel time on a K3
-   forward;
+   csrc/wapply.cu, csrc/overlap.cu) from the sources in the checkout, one
+   nvcc per source, started together, and print ptxas's registers and
+   spills per kernel (K3: one line per instantiation; the float32 ones
+   must not spill); then: eigh_jacobi, sp2_purify, the K3 forward and
+   backward (each perm) and the overlap kernel (each segment mode, on
+   expanded inputs) on CUDA are one device kernel per call (a captured
+   CUDA graph), and the device-only timer against torch.profiler's kernel
+   time on a K3 forward;
 3. K1 (SP2) against its plain version and the exact density (f64 eigh) on
    the card, at the main path's shape and at n = 8, 12, 16, 24, 32
    (the warp kernel) and 128 (the block kernel);
@@ -30,7 +31,8 @@ line is printed):
 4. the XL-SP2 path at full width: 10,240 molecules x 8 atoms, AM1 float32,
    one bootstrap SCF (DIIS, SP2) then XL-BOMD (k=5, 0.4 fs) through the
    entry points build -> XLBOMD.initialize -> XLBOMD.step: steps/s, kernel
-   launches, device ms per program span of three profiled steps (the
+   launches (three overlap kernel launches per step, one per pair
+   segment), device ms per program span of three profiled steps (the
    port's own span record, read as portbench/pbench/spans.py reads it;
    at least 99% of the device time charged to a span) and the energy
    drift;
@@ -38,8 +40,16 @@ line is printed):
    alone, ``device_ms``);
 6. measurements that say where the step's time goes (not checked): kernel
    launches and device kernel time of one profiled step against the timed
-   step, the step without the double-float overlap chain, and the drift of
-   an f64 run of the first 256 molecules next to the f32 run's;
+   step, the step with the plain float32 overlap chain instead of the
+   double-float one (the overlap kernel), and the drift of an f64 run of
+   the first 256 molecules next to the f32 run's;
+18. the overlap kernel on the inputs of one Hcore build of each XL
+    configuration of the benchmark at its batch (655,360 small organics,
+    40,960 nonanes), per pair segment: against the double-float chain
+    (within 1 float32 ulp where that chain is itself) and the float64
+    chain (3e-7), and its time alone against its bound (the distinct
+    bytes of the inputs its mode reads and the outputs at 3.35 TB/s, or
+    FP64 operations at 34 TFLOP/s, the larger) and the chain's time;
 7. float32 accuracy of the SP2 path: energy and force of the first 256
    molecules against the port at float64;
 8. K2 (one-sided Jacobi eigh) against exact (f64 eigh) and its plain
@@ -159,7 +169,9 @@ line is printed):
     each rank's block and within float32 rounding of its run of the whole
     batch, and the padding finite;
 23. a JSON line of every kernel with its launches, error and times against
-    its bound; then the card; the elapsed time; then the result line.
+    its bound (the overlap kernel's times on xl-small's H-H segment, every
+    segment's beside them); then the card; the elapsed time; then the
+    result line.
 
 Every phase prints its elapsed time.  A kernel "alone" is timed by
 ``device_ms``: a spin kernel queued ahead of each call keeps the card busy
@@ -173,6 +185,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import shutil
@@ -193,6 +206,7 @@ DEV = "cuda"
 # one H100 SXM, NVIDIA data sheet: FP32 outside the tensor cores, HBM3
 PEAK_FP32 = 67.0e12
 PEAK_BYTES = 3.35e12
+PEAK_FP64 = 34.0e12
 TOL_KERNEL = 5.0e-5         # K1 against exact / plain / idempotency
 TOL_DRIFT = 0.01            # eV over the timed steps
 # f32 vs f64 on 256 molecules, eV and eV/A.  The Hf bound sits at the f32
@@ -210,6 +224,14 @@ TOL_E_ORB, TOL_CHARGE = 2.0e-3, 1.0e-4     # eV; charge invariant
 # at least 3e-6), and rounding in float64
 TOL_K3 = {torch.float32: 3.0e-6, torch.float64: 1.0e-12}
 K3_PERMS = ((1, 2, 3, 4), (3, 4, 1, 2), (1, 3, 2, 4))
+# the overlap kernel (phase 18): the benchmark's XL configurations at
+# their batches; FP64 operations per cell of each class as csrc/overlap.cu
+# evaluates it in the exact B regime (each add, multiply, divide, negate
+# and exp one): 44 per A/B pair, then the brackets and the final product.
+# A cell of no class (padding, row 3) only reads and writes
+OVERLAP_CASES = (("xl-small", 655360), ("xl-nonane", 40960))
+OVERLAP_OPS = {"jcall2": 44 + 4, "jcall3": 2 * 44 + 8 + 8,
+               "jcall4": 4 * 44 + 7 + 12 + 12 + 6 + 10}
 # cells of one apply on each path, and a count that is no multiple of the
 # kernels' blocks
 K3_CELLS = {"headline packed XX": NMOL * 2 * 2, "nanostar packed XX": 294 ** 2,
@@ -479,9 +501,10 @@ def phase_card():
 
 
 def phase_build():
-    from pyseqm_tpu_torch.ops import (cuda_build, eigh_kernel, sp2_kernel,
+    from pyseqm_tpu_torch.ops import (cuda_build, eigh_kernel,
+                                      overlap_kernel, sp2_kernel,
                                       wapply_kernel)
-    kernels = (sp2_kernel, eigh_kernel, wapply_kernel)
+    kernels = (sp2_kernel, eigh_kernel, wapply_kernel, overlap_kernel)
     shutil.rmtree(cuda_build.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
     # one nvcc per source, all started together
@@ -490,11 +513,12 @@ def phase_build():
     sp2_kernel._load()
     eigh_kernel._load()
     wapply_kernel._load_all()
+    overlap_kernel._load()
     print(f"[2 build] {', '.join(k.SOURCE + '.cu' for k in kernels)} -> "
           f"{cuda_build.BUILD_DIR} in {time.perf_counter() - t0:.2f} s",
           flush=True)
     reports = {}
-    for k in (sp2_kernel, eigh_kernel):
+    for k in (sp2_kernel, eigh_kernel, overlap_kernel):
         reports[k.SOURCE] = [
             ln.strip() for ln in cuda_build.ptxas_report(k.SOURCE).splitlines()
             if "Compiling entry" in ln or "Used" in ln or "spill" in ln
@@ -556,7 +580,8 @@ def k3_ptxas(report):
 def phase_profiler():
     """eigh_jacobi and sp2_purify on CUDA tensors are one device kernel
     each, at every kernel variant, and so are the K3 forward and backward
-    at each perm (read from a captured CUDA graph); the
+    at each perm and the overlap kernel at each segment mode (read from a
+    captured CUDA graph); the
     device-only timer read against torch.profiler's kernel time, and
     against median_ms, on a K3 forward at the headline's cell count.  A
     torch.profiler session can lose a ctypes launch's device events (a
@@ -564,6 +589,7 @@ def phase_profiler():
     PERF.md), so the profiler reads only the timer's cross-check, from
     the first of up to three sessions that recorded every launch."""
     from pyseqm_tpu_torch.ops import eigh_kernel as ek, sp2_kernel as sk
+    from pyseqm_tpu_torch.ops import overlap_kernel as ok_
     from pyseqm_tpu_torch.ops import wapply_kernel as wk
     for n in (2, 16, 24, 32, 128):
         A = sym_case(64, n, 30 + n)
@@ -587,6 +613,12 @@ def phase_profiler():
     print(f"[2 one launch] K3 forward and backward at C={C}, perms "
           f"{', '.join(map(str, K3_PERMS))}: one kernel node each",
           flush=True)
+    ins = overlap_grid_case(4096, 2, 6, 78)
+    for mode in (2, 3, 4):
+        check_one_kernel(lambda: ok_.s_combinations(mode, *ins),
+                         "overlap_s_kernel", f"overlap kernel mode {mode}")
+    print("[2 one launch] overlap kernel, modes 2, 3, 4 on expanded "
+          "(4096, 2, 6) inputs: one kernel node each", flush=True)
     perm = (1, 3, 2, 4)
 
     def fwd():
@@ -723,7 +755,7 @@ def span_breakdown(md, species, state):
 def phase_main_path(card):
     from pyseqm_tpu_torch.drivers.md import MDConfig
     from pyseqm_tpu_torch.drivers.xlbomd import XLBOMD
-    from pyseqm_tpu_torch.ops import sp2_kernel
+    from pyseqm_tpu_torch.ops import overlap_kernel, sp2_kernel
     const, tables, cfg, species, coords = headline_setup(
         NMOL, torch.float32, 1.0e-5, 1.0e-4)
     md = XLBOMD(const, tables, cfg, MDConfig(timestep=0.4), k=5)
@@ -749,6 +781,7 @@ def phase_main_path(card):
     sync()
     n0 = sp2_kernel.launches
     k0 = k3_counts()
+    ov0 = overlap_kernel.launches
     etots = []
     t0 = time.perf_counter()
     for _ in range(NSTEPS):
@@ -758,6 +791,7 @@ def phase_main_path(card):
     t_steps = time.perf_counter() - t0
     n_steps_launch = sp2_kernel.launches - n0
     k3_step = [(b - a) / NSTEPS for a, b in zip(k0, k3_counts())]
+    ov_step = (overlap_kernel.launches - ov0) / NSTEPS
     main_launches = sp2_kernel.launches
     k3_main = k3_counts()
     per_mol = (torch.stack(etots).double() - e_ref[None]).abs().amax(dim=0)
@@ -769,6 +803,7 @@ def phase_main_path(card):
           f"{sps:.3f} steps/s ({1e3 * t_steps / NSTEPS:.3f} ms/step) on "
           f"{card} | K1 launches over {NSTEPS} steps {n_steps_launch} | "
           f"K3 launches per step fwd {k3_step[0]:g} bwd {k3_step[1]:g} | "
+          f"overlap kernel launches per step {ov_step:g} | "
           f"|Etot - Etot(warm-up end)| per molecule eV {fmt(per_mol)} | "
           f"finite {finite}", flush=True)
     check(finite, "non-finite MD state")
@@ -777,6 +812,8 @@ def phase_main_path(card):
     check(drift <= TOL_DRIFT, f"energy drift {drift} > {TOL_DRIFT} eV")
     check(k3_step == [2.0, 2.0], f"K3 launches per XL step {k3_step}, "
           "expected 2 forward (Coulomb, exchange) and 2 backward")
+    check(ov_step == 3.0, f"overlap kernel launches per XL step {ov_step}, "
+          "expected 3 (the XX, XH and HH segments)")
 
     bd = [span_breakdown(md, species, state) for _ in range(3)]
     names = sorted({k for b in bd for k in b if k != "total"})
@@ -850,11 +887,156 @@ def phase_diagnostics(md, species, state, per_mol_f32, step_ms):
     sps_plain, _ = xl_run(NMOL, torch.float32, False, 20)
     sps_prec, _ = xl_run(NMOL, torch.float32, True, 20)
     print(f"[6 overlap chain] 20-step XL timing, same process: double-float "
-          f"overlap {sps_prec:.3f} steps/s, plain-f32 overlap "
-          f"{sps_plain:.3f} steps/s", flush=True)
+          f"overlap (the overlap kernel) {sps_prec:.3f} steps/s, plain-f32 "
+          f"overlap chain {sps_plain:.3f} steps/s", flush=True)
     _, per_mol_f64 = xl_run(256, torch.float64, True, NSTEPS)
     print(f"[6 drift, first 256 molecules] f64 max {per_mol_f64.max():.3e} "
           f"eV, f32 max {per_mol_f32[:256].max():.3e} eV", flush=True)
+
+
+def overlap_grid_case(nmol, K, AH, seed):
+    """Overlap inputs of an X-H-shaped segment (nmol, K, AH) on the card,
+    as hcore_dense_split passes them: per-atom exponents expanded over the
+    grid, distances from 1 to 9 Bohr, the three classes at random."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    zeta = (0.8 + 2.0 * torch.rand(nmol, K + AH, generator=g)).to(DEV)
+    r = (1.0 + 8.0 * torch.rand(nmol, K, AH, generator=g)).to(DEV)
+    zi = zeta[:, :K, None].expand(nmol, K, AH)
+    zj = zeta[:, None, K:].expand(nmol, K, AH)
+    j = torch.rand(nmol, K, AH, generator=g).to(DEV)
+    return (r, zi, zi, zj, zj, j < 0.3, (j >= 0.3) & (j < 0.6), j >= 0.6)
+
+
+def overlap_segments(name, nmol):
+    """(mode, inputs) of each overlap kernel call of one float32 Hcore
+    build (``_integral_stack``, as the XL step runs it) of the benchmark's
+    configuration ``name`` at ``nmol`` molecules, jittered by 0.02 A."""
+    import pyseqm_tpu_torch as pt
+    from pyseqm_tpu_torch.models.energy import (_atom_parameters,
+                                                _integral_stack,
+                                                _packed_layout)
+    from pyseqm_tpu_torch.ops import overlap_kernel
+    from pyseqm_tpu_torch.scf import SCFConfig
+    from pyseqm_tpu_torch.system import make_system
+    from pyseqm_tpu_torch.utils.molecules import make_alkane, make_batch
+    rng = np.random.default_rng(18)
+    if name == "xl-small":
+        sp, co = make_batch(nmol, MOLSIZE, jitter=0.02)
+    else:
+        s1, c1 = make_alkane(9)
+        sp = np.repeat(s1[None], nmol, 0)
+        co = c1[None] + 0.02 * rng.standard_normal((nmol,) + c1.shape)
+    const, tables, cfg = pt.build(
+        "AM1", dtype=torch.float32, device=DEV,
+        scf=SCFConfig(pack_heavy=pt.packed_heavy_count(sp)))
+    species = torch.tensor(sp, dtype=torch.long, device=DEV)
+    coords = torch.tensor(co.astype(np.float32), device=DEV)
+    K, n_st = _packed_layout(cfg, species.shape[1])
+    calls = []
+    launch = overlap_kernel.s_combinations
+
+    def tap(mode, *ins):
+        calls.append((mode, ins))
+        return launch(mode, *ins)
+    with torch.no_grad(), patched(overlap_kernel, "s_combinations", tap):
+        sys_ = make_system(const, species, coords, None, heavy_count=K)
+        p = _atom_parameters(tables, cfg.method, sys_, None, coords)
+        _integral_stack(const, sys_, p, cfg, packed_m=n_st)
+    return calls
+
+
+def overlap_errors(mode, ins, out):
+    """(cells beyond 1 ulp of the double-float chain, those not nearer to
+    float64 than the chain or beyond 1 ulp of it, the largest |kernel -
+    float64|, zero patterns equal) over the five outputs."""
+    from pyseqm_tpu_torch.ops import overlap as tov
+
+    def ordered(x):
+        i = x.float().contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    chain = tov._s_combinations(*ins, True, mode)
+    exact = tov._s_combinations(*[t.double() if t.is_floating_point()
+                                  else t for t in ins], False, mode)
+    beyond = bad = 0
+    worst, zeros = 0.0, True
+    for g, c, e in zip(out, chain, exact):
+        far = (ordered(g) - ordered(c)).abs() > 1
+        nearer = (((g.double() - e).abs() <= (c.double() - e).abs())
+                  & ((ordered(g) - ordered(e.float())).abs() <= 1))
+        beyond += int(far.sum())
+        bad += int((far & ~nearer).sum())
+        worst = max(worst, float((g.double() - e).abs().max()))
+        zeros = zeros and torch.equal(g == 0, c == 0)
+    return beyond, bad, worst, zeros
+
+
+# the inputs (rij, zsi, zpi, zsj, zpj, jcall2, jcall3, jcall4) a segment's
+# combinations read: H-H only rij, zsi, zsj and jcall2; X-H no zpj, jcall4
+OVERLAP_READS = {2: (0, 1, 3, 5), 3: (0, 1, 2, 3, 5, 6), 4: tuple(range(8))}
+
+
+def overlap_bound(mode, ins):
+    """(bound ms, bound by, bytes, FP64 operations) of one call: each
+    distinct element of the inputs the mode reads, once (an expanded input
+    counts its own elements), the five float32 outputs written once, FP64
+    operations by the class of each cell."""
+    views = torch.broadcast_tensors(*ins)
+    n = views[0].numel()
+    nbytes = 5 * 4 * n
+    for k in OVERLAP_READS[mode]:
+        v = views[k]
+        nbytes += v.element_size() * math.prod(
+            sz for sz, st in zip(v.shape, v.stride()) if st != 0)
+    j2, j3, j4 = (v.bool() for v in views[5:])
+    j3 = j3 & ~j2 if mode >= 3 else torch.zeros_like(j3)
+    j4 = j4 & ~j2 & ~j3 if mode >= 4 else torch.zeros_like(j4)
+    ops = (int(j2.sum()) * OVERLAP_OPS["jcall2"]
+           + int(j3.sum()) * OVERLAP_OPS["jcall3"]
+           + int(j4.sum()) * OVERLAP_OPS["jcall4"])
+    t_op, t_byte = ops / PEAK_FP64 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (max(t_op, t_byte), "FP64 operations" if t_op > t_byte
+            else "bytes", nbytes, ops)
+
+
+def phase_overlap():
+    from pyseqm_tpu_torch.ops import overlap as tov
+    from pyseqm_tpu_torch.ops import overlap_kernel
+    seg = {4: "XX", 3: "XH", 2: "HH"}
+    out = {}
+    for name, nmol in OVERLAP_CASES:
+        calls = overlap_segments(name, nmol)
+        check(sorted(m for m, _ in calls) == [2, 3, 4],
+              f"{name}: overlap kernel calls of one Hcore build by mode "
+              f"{[m for m, _ in calls]}, expected one per segment")
+        for mode, ins in calls:
+            fn = lambda: overlap_kernel.s_combinations(mode, *ins)  # noqa: E731
+            beyond, bad, worst, zeros = overlap_errors(mode, ins, fn())
+            n = math.prod(torch.broadcast_shapes(*(t.shape for t in ins)))
+            check(bad == 0 and beyond <= max(1, 5 * n // 1000) and zeros
+                  and worst <= 3.0e-7,
+                  f"{name} {seg[mode]}: {beyond} cells beyond 1 ulp of the "
+                  f"chain, {bad} of them not nearer to float64, float64 "
+                  f"error {worst:.2e}, zeros equal {zeros}")
+            ms = device_ms(fn, 20)
+            plain = median_ms(lambda: tov._s_combinations(*ins, True, mode),
+                              3)
+            bound, by, nbytes, ops = overlap_bound(mode, ins)
+            key = f"{name} {seg[mode]}"
+            out[key] = {"cells": n, "shape": list(torch.broadcast_shapes(
+                *(t.shape for t in ins))), "ms": ms, "plain_ms": plain,
+                "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+                "fp64_ops": ops, "cells_beyond_1ulp": beyond,
+                "max_abs_err_f64": worst}
+            print(f"[18 overlap {key}] {n} cells {out[key]['shape']}: "
+                  f"kernel {ms:.4f} ms (median of 20, device time alone), "
+                  f"double-float chain {plain:.2f} ms | bound {bound:.4f} ms "
+                  f"({by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G FP64 "
+                  f"operations), {100 * bound / ms:.1f}% of it | cells "
+                  f"beyond 1 ulp of the chain {beyond} (each nearer to "
+                  f"float64), |kernel - float64| {worst:.2e}", flush=True)
+        del calls
+        torch.cuda.empty_cache()
+    return out
 
 
 def main_path_sp2_input(md, species, state):
@@ -3401,6 +3583,9 @@ def main():
         phase_diagnostics(md, species, state, per_mol, 1e3 / sps)
     del md, state
     torch.cuda.empty_cache()
+    with Phase("18 overlap"):
+        overlap_t = phase_overlap()
+    torch.cuda.empty_cache()
     with Phase("7 accuracy"):
         phase_accuracy()
 
@@ -3590,6 +3775,19 @@ def main():
             "route": "WApplyBwd", "max_abs_err_synthetic": {
                 str(d)[6:]: e for d, e in worst3_second.items()}}
     k3f["timer_cross_check"] = timer_check
+    from pyseqm_tpu_torch.ops import overlap_kernel
+    main_ov = overlap_t["xl-small HH"]
+    ov = {"name": "overlap_s", "route": "cuda",
+          "source": "pyseqm_tpu_torch/csrc/overlap.cu",
+          "replaces": None, "added": "PR 14",
+          "launches": overlap_kernel.launches, "launches_per_xl_step": 3,
+          "max_abs_err_f64": max(t["max_abs_err_f64"]
+                                 for t in overlap_t.values()),
+          **{k: main_ov[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by")},
+          "library_ms": None, "segments": overlap_t,
+          "ptxas": ptxas["overlap"],
+          "phases": ["2 one launch", "4 main path", "18 overlap"]}
     k3f["launches_per_xl_step"], k3b["launches_per_xl_step"] = k3_step
     print(json.dumps({"main_path": {"steps_per_s": sps,
                                     "span_breakdown_ms": parts},
@@ -3606,7 +3804,7 @@ def main():
                       "ml_grad": ml_grad, "resume": resume,
                       "lbfgs_optax": optax, "sharded": sharded}),
           flush=True)
-    print(json.dumps({"kernels": [k1, k2, k3f, k3b]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3f, k3b, ov]}), flush=True)
     print(card_line(), flush=True)
     print(f"elapsed {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {

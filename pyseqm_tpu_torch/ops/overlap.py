@@ -12,7 +12,9 @@ analytically with the bond unit vector v:
 Precision: the reference evaluates the A/B auxiliary integrals and their
 alternating-sign combinations in float64.  ``precise=True`` (float32 inputs
 only) evaluates the chain in double-float (hi, lo) arithmetic on plain f32
-ops; its gradient is the plain-f32 chain's (see _STf).
+ops; on CUDA tensors one kernel launch per pair segment evaluates it
+instead (ops/overlap_kernel.py, within one float32 ulp of the chain); its
+gradient is the plain-f32 chain's (see _STf).
 
 ``row3`` adds the (3,1), (3,2) and (3,3) classes (Na..Cl) from the
 generated coefficients of ops/overlap_general.py, evaluated on each class's
@@ -21,9 +23,13 @@ numbers) and scattered over the hand-coded classes' values.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
+from ..utils.timing import count
+from . import overlap_kernel
 from .accmath import exp as _exp
 from .accmath import exp_tf as _exp_tf
 from .xsum import TwoFloat, tf_const, tf_prod, tf_recip, two_sum
@@ -249,6 +255,11 @@ class _STf(torch.autograd.Function):
     """Double-float primal, plain-f32 gradient (counterpart of the JAX
     package's custom_jvp ``_make_s_combinations_tf``).
 
+    The primal of float32 CUDA tensors is one launch of the overlap
+    kernel (ops/overlap_kernel.py), that of any other tensor the
+    double-float chain; each call counts its cells as
+    ``overlap.kernel_cells`` or ``overlap.plain_cells`` in the open span.
+
     Only the value of S needs the extended precision (it feeds the
     alternating-sign Hf cancellation); its derivative feeds forces, whose
     f32 noise floor is orders above the ~1e-7 relative gap between the
@@ -265,8 +276,13 @@ class _STf(torch.autograd.Function):
     def forward(ctx, mode, rij, zsi, zpi, zsj, zpj, j2, j3, j4):
         ctx.mode = mode
         ctx.save_for_backward(rij, zsi, zpi, zsj, zpj, j2, j3, j4)
-        return _s_combinations(rij, zsi, zpi, zsj, zpj, j2, j3, j4,
-                               True, mode)
+        ins = (rij, zsi, zpi, zsj, zpj, j2, j3, j4)
+        cells = math.prod(torch.broadcast_shapes(*(t.shape for t in ins)))
+        if overlap_kernel.supported(rij.device, rij.dtype):
+            count("overlap.kernel_cells", cells)
+            return overlap_kernel.s_combinations(mode, *ins)
+        count("overlap.plain_cells", cells)
+        return _s_combinations(*ins, True, mode)
 
     @staticmethod
     def backward(ctx, *gs):

@@ -3,8 +3,9 @@
 traced session: kernels charged by correlation id and launch time to the
 innermost span, an autograd-engine launch to ``backward`` (or to a span
 opened on the engine's thread), idle gaps and the SCF's reads, the
-steps of a second session left out, and every reader None where the
-program keeps no span record."""
+steps of a second session left out, the overlap kernel's share of the
+integrals spans' cells, and every reader None where the program keeps no
+span record."""
 import os
 import sys
 
@@ -22,9 +23,11 @@ MAIN, ENGINE = 101, 102          # native thread ids of the spans
 T_MAIN, T_ENGINE = 1, 2          # the profiler's thread ids of launches
 MD = ("driver_span_ms.md", "models_span_ms.md", "integrals_span_ms.md",
       "fock_span_ms.md", "density_span_ms.md", "energy_span_ms.md",
-      "sp2_iterations.md", "integrals_idle_ms.md")
+      "sp2_iterations.md", "integrals_idle_ms.md",
+      "overlap_kernel_share.md")
 SP = ("integrals_span_ms.sp", "fock_span_ms.sp", "density_span_ms.sp",
-      "eigh_sweeps.sp", "scf_reads.sp", "scf_read_idle_ms.sp")
+      "eigh_sweeps.sp", "scf_reads.sp", "scf_read_idle_ms.sp",
+      "overlap_kernel_share.sp")
 
 
 def rec(index, name, start, end, parent=-1, root=None, thread=MAIN,
@@ -164,3 +167,26 @@ def test_readers_none_without_a_span_record(monkeypatch):
     timing.reset()
     assert spans.program_spans() is None
     assert registry.reader(BENCH, "fock_span_ms.md")({"a": sess}) is None
+
+
+@pytest.mark.parametrize("metric", ["overlap_kernel_share.md",
+                                    "overlap_kernel_share.sp"])
+@pytest.mark.parametrize("counts,share", [
+    ([{"overlap.kernel_cells": 52}, {"overlap.kernel_cells": 48}], 100.0),
+    ([{"overlap.plain_cells": 52}, {"overlap.plain_cells": 48}], 0.0),
+    ([{"overlap.kernel_cells": 30}, {"overlap.plain_cells": 10}], 75.0),
+    ([{}, {}], None),
+])
+def test_overlap_kernel_share(metric, counts, share, monkeypatch):
+    """The share of overlap cells the kernel computed, over the integrals
+    spans of the traced units; absent where no span counted a cell (the
+    program before the kernel)."""
+    recs = [rec(0, "model.force", 0, 1000, counts={"molecules": 8}),
+            rec(1, "integrals", 10, 100, 0, 0, counts=counts[0]),
+            rec(2, "integrals", 200, 300, 0, 0, counts=counts[1]),
+            rec(3, "fock", 300, 400, 0, 0,
+                counts={"overlap.plain_cells": 7})]
+    kernels = [(20, T_MAIN, 20, 100), (250, T_MAIN, 250, 260),
+               (350, T_MAIN, 350, 360)]
+    got = read_all([metric], {"a": session(kernels)}, recs, monkeypatch)
+    assert got[metric] == (None if share is None else pytest.approx(share))

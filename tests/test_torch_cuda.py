@@ -1,7 +1,8 @@
-"""PyTorch port on an NVIDIA GPU: the CUDA SP2, Jacobi eigh and fused
-two-electron apply kernels against their plain versions (and the exact
-answers where there are any), K3's second derivative against double
-backward through its plain version, short float32 XL-BOMD runs (SP2 and
+"""PyTorch port on an NVIDIA GPU: the CUDA SP2, Jacobi eigh, fused
+two-electron apply and double-float overlap kernels against their plain
+versions (and the exact answers where there are any), K3's second
+derivative against double backward through its plain version, the
+overlap kernel on real XL steps, short float32 XL-BOMD runs (SP2 and
 eigh densities) through the kernels, the default flat layout's and the
 class-segmented flat pair list's energy and force, the SCF adjoint's
 parameter and coordinate gradients, a water Hessian through the
@@ -24,10 +25,12 @@ import torch
 import pyseqm_tpu_torch as pt
 from pyseqm_tpu_torch.drivers.md import MDConfig
 from pyseqm_tpu_torch.drivers.xlbomd import XLBOMD
-from pyseqm_tpu_torch.ops import eigh_kernel, sp2_kernel, wapply_kernel
+from pyseqm_tpu_torch.ops import (eigh_kernel, overlap_kernel, sp2_kernel,
+                                  wapply_kernel)
+from pyseqm_tpu_torch.ops import overlap as tov
 from pyseqm_tpu_torch.ops.tetci import frame_matrix
 from pyseqm_tpu_torch.scf import SCFConfig
-from pyseqm_tpu_torch.utils.molecules import make_batch
+from pyseqm_tpu_torch.utils.molecules import make_alkane, make_batch
 
 pytestmark = pytest.mark.cuda
 
@@ -202,6 +205,144 @@ def test_xlbomd_f32_on_card_matches_cpu(cuda, use_sp2):
                                rtol=0, atol=2e-4)
     np.testing.assert_allclose(sg.coordinates.cpu().numpy(),
                                sc.coordinates.numpy(), rtol=0, atol=2e-6)
+
+
+def _ulps(a, b):
+    """Distance in float32 units in the last place (+0 and -0 alike)."""
+    def ordered(x):
+        i = x.float().contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def _overlap_against_chains(mode, ins, bar=3.0e-7):
+    """The kernel's five outputs against the double-float chain on the
+    card and the float64 chain.  Each cell lies within 1 float32 ulp of
+    the double-float chain, or, where that chain's own error passes an
+    ulp (an alternating-sign bracket that cancels), within 1 ulp of the
+    float64 value and nearer to it than the chain; those cells are rare.
+    Zeros in the same cells.  Each cell no farther from float64 than the
+    chain, to an ulp (both share the float32 prefactors, whose rounding
+    sets the error), and, with ``bar``, every output within ``bar`` of
+    float64 (3e-7, the bar of test_torch_integrals'
+    test_precise_overlap_f32_values on its inputs; |S| <= 1)."""
+    got = overlap_kernel.s_combinations(mode, *ins)
+    chain = tov._s_combinations(*ins, True, mode)
+    exact = tov._s_combinations(*[t.double() if t.is_floating_point()
+                                  else t for t in ins], False, mode)
+    for k, (g, c, e) in enumerate(zip(got, chain, exact)):
+        assert bool(torch.isfinite(g).all()), (mode, k)
+        near = _ulps(g, c) <= 1
+        nearer = (((g.double() - e).abs() <= (c.double() - e).abs())
+                  & (_ulps(g, e.float()) <= 1))
+        assert bool((near | nearer).all()), (mode, k)
+        assert int((~near).sum()) <= max(1, g.numel() // 1000), (mode, k)
+        assert torch.equal(g == 0, c == 0), (mode, k)
+        err, err_c = (g.double() - e).abs(), (c.double() - e).abs()
+        ulp = torch.finfo(torch.float32).eps * e.abs()
+        assert bool((err <= err_c + ulp).all()), (mode, k)
+        if bar is not None:
+            assert float(err.max()) <= bar, (mode, k)
+
+
+@pytest.mark.parametrize("config", ["small-organics", "nonane"])
+def test_overlap_kernel_on_a_real_step(cuda, config, monkeypatch):
+    """Every overlap segment of a float32 XL-BOMD bootstrap and step on
+    the packed class-segmented grid (the benchmark's XL cells: padding
+    atoms and the diagonal cells included), through the kernel, one
+    launch per segment, against both chains on the same inputs."""
+    if config == "small-organics":
+        sp, co = make_batch(2048, 8, jitter=0.02, seed=5)
+    else:
+        s1, c1 = make_alkane(9)
+        rng = np.random.default_rng(5)
+        sp = np.repeat(s1[None], 128, 0)
+        co = c1[None] + 0.02 * rng.standard_normal((128,) + c1.shape)
+    scf = SCFConfig(eps=1.0e-5, converger=(2,), use_sp2=True,
+                    sp2_eps=1.0e-4, pack_heavy=pt.packed_heavy_count(sp))
+    const, tables, cfg = pt.build("AM1", dtype=torch.float32, device=cuda,
+                                  scf=scf)
+    calls = []
+    launch = overlap_kernel.s_combinations
+
+    def tap(mode, *ins):
+        calls.append((mode, [t.detach().clone() for t in ins]))
+        return launch(mode, *ins)
+    monkeypatch.setattr(overlap_kernel, "s_combinations", tap)
+    md = XLBOMD(const, tables, cfg, MDConfig(timestep=0.4), k=5)
+    n0 = overlap_kernel.launches
+    s = md.initialize(sp, co, velocities=np.zeros_like(co),
+                      initial_force=False)
+    md.step(sp, s)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert overlap_kernel.launches - n0 == len(calls) > 0
+    assert sorted({m for m, _ in calls}) == [2, 3, 4]
+    for mode, ins in calls:
+        _overlap_against_chains(mode, ins)
+
+
+def test_overlap_kernel_edge_cells(cuda):
+    """Random classes and geometries with padding cells (rij = 1), zero
+    exponents (a zero A argument), equal exponents (the B limit) and the
+    Taylor regime, at every mode, on contiguous and expanded inputs.  The
+    distances (from 0.8 Bohr) and exponents (to 3.5) reach overlaps near
+    1, where the float32 prefactors alone put the chain up to ~3e-7 from
+    float64, so the kernel is held to the chain's own error there; then
+    distances out to the overlap cutoff (40 Bohr) against the float64
+    chain alone: there the A argument passes 87, the float32 exp of the
+    double-float chain turns subnormal and then 0, and the kernel's FP64
+    A integrals do not."""
+    g = torch.Generator(device="cpu").manual_seed(9)
+    n = 40000
+    qni = torch.randint(1, 3, (n,), generator=g)
+    qnj = torch.minimum(qni, torch.randint(1, 3, (n,), generator=g))
+    r = 0.8 + 11.2 * torch.rand(n, generator=g)
+    z = 0.5 + 3.0 * torch.rand(4, n, generator=g)
+    r[:1000] = 1.0
+    z[:, 1000:2000] = 0.0
+    z[2:, 2000:3000] = z[:2, 2000:3000]
+    z[2:, 3000:4000] = z[:2, 3000:4000] + 1.0e-3 * torch.rand(
+        2, 1000, generator=g)
+    ins = [t.to(cuda) for t in (r, *z, (qni == 1) & (qnj == 1),
+                                (qni == 2) & (qnj == 1),
+                                (qni == 2) & (qnj == 2))]
+    for mode in (2, 3, 4):
+        _overlap_against_chains(mode, ins, bar=None)
+    # expanded per-atom exponents, as the X-H and H-H call sites pass them
+    zi = z[0, :64].to(cuda)[:, None].expand(64, 625)
+    zj = z[1, :625].to(cuda)[None, :].expand(64, 625)
+    grid = [r.to(cuda).view(64, 625), zi, zi, zj, zj] + [
+        m.view(64, 625) for m in ins[5:]]
+    for mode in (2, 3, 4):
+        _overlap_against_chains(mode, grid, bar=None)
+    far = [(12.0 + 28.0 * torch.rand(n, generator=g)).to(cuda)] + ins[1:]
+    exact = tov._s_combinations(*[t.double() if t.is_floating_point()
+                                  else t for t in far], False, 4)
+    for got, e in zip(overlap_kernel.s_combinations(4, *far), exact):
+        assert bool(torch.isfinite(got).all())
+        assert float((got.double() - e).abs().max()) <= 3.0e-7
+
+
+@pytest.mark.parametrize("mode", [2, 3, 4])
+def test_overlap_kernel_is_one_launch(cuda, mode, tmp_path):
+    """One segment is one kernel launch: the CUDA graph captured around
+    one call holds one node, the overlap kernel, and nothing else (the
+    five outputs are allocated without a fill)."""
+    nmol, K, AH = 512, 2, 6
+    g = torch.Generator(device="cpu").manual_seed(mode)
+    zeta = (0.8 + 2.0 * torch.rand(nmol, K + AH, generator=g)).to(cuda)
+    r = (1.0 + 8.0 * torch.rand(nmol, K, AH, generator=g)).to(cuda)
+    zi = zeta[:, :K, None].expand(nmol, K, AH)
+    zj = zeta[:, None, K:].expand(nmol, K, AH)
+    j = torch.rand(nmol, K, AH, generator=g).to(cuda)
+    ins = (r, zi, zi, zj, zj, j < 0.3, (j >= 0.3) & (j < 0.6), j >= 0.6)
+    before = overlap_kernel.launches
+    nodes = _graph_nodes(lambda: overlap_kernel.s_combinations(mode, *ins),
+                         tmp_path / "graph.dot")
+    assert (len(nodes) == 1 and "KERNEL" in nodes[0]
+            and "overlap_s_kernel" in nodes[0]), [nd[:160] for nd in nodes]
+    assert overlap_kernel.launches == before + 2    # warm-up and capture
 
 
 def _wapply_case(C, dtype, device, seed, lead=None):
