@@ -25,7 +25,7 @@ sys.path.insert(1, ROOT)
 
 def main():
     import torch
-    from pbench import cells, registry
+    from pbench import registry
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seconds", type=float, default=3.0)
@@ -39,8 +39,8 @@ def main():
     for i in range(args.seeds):
         seed = args.first_seed + 7919 * i
         t0 = time.perf_counter()
-        cell = cells.KINDS[spec["traffic"]["kind"]](spec, seed, "cuda:0",
-                                                    False)
+        cell = registry.kind(spec["bench_dir"], spec["traffic"]["kind"])(
+            spec, seed, "cuda:0", False)
         cell.setup()
         cell.window(args.seconds)
         row = {"seed": seed, "program": cell.check(), "failed": cell.failed}

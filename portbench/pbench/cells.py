@@ -1,5 +1,17 @@
 """One run of one cell: set-up, the timed (or traced) window and the
-correctness check, for the two kinds of traffic the benchmark has.
+correctness check, for the two kinds of traffic the benchmark has here.
+
+A cell is put together from parts found by name (``registry``): its
+configuration (method, dtype, layout, molecules: ``MOLECULES`` by name,
+``alkane_carbons``, or a ``molecules/<g>.json`` file; a learned-parameter
+model ``learned/<m>.py`` with its reference ``reference/learned/<m>.py``),
+its traffic (``traffic/<t>.json``, whose ``kind`` picks the class: ``KINDS``
+below, else ``kinds/<kind>.py``'s ``Cell``, a subclass of ``Cell``), its
+limits and its metric readers.  Set-up refuses molecules with an element
+that the mass table, the method's tables or the parameter model lacks.
+A learned model is handed to the port's ``XLBOMD`` and ``force`` and, its
+plain side, to the reference's XL force and single points, the control's
+at float32; without one, both are called as they always were.
 
 ``xlbomd``: a closed loop of ``XLBOMD.step`` calls on one batch after the
 bootstrap SCF and the warm-up steps.  ``single_point``: a closed loop of
@@ -32,7 +44,7 @@ import numpy as np
 import torch
 
 from . import inputs, program, trace
-from reference.check import Reference, Worst, max_abs
+from reference.check import Reference, Worst, max_abs, method_elements
 from reference.seqm.ops.density import packed_solver_size
 
 # sizes of the check: bootstrap molecules, sampled molecules per request,
@@ -65,14 +77,28 @@ class Cell:
         self.tracing = tracing
         self.batch = int(self.traffic["batch"])
         self.dtype = getattr(torch, self.config["dtype"])
-        sp, base = inputs.base_batch(self.config, self.batch)
+        sp, base = inputs.base_batch(self.config, self.batch,
+                                     spec["bench_dir"])
+        method = self.config["method"]
+        covered = {"the mass table": inputs.MASS,
+                   f"the {method} tables": method_elements(method)}
+        self.learned_model = spec.get("learned")
+        if self.learned_model is not None:
+            covered["the parameter model " + self.learned_model["name"]] = \
+                self.learned_model["elements"]
+        inputs.check_elements(sp, covered)
+        self.learned = (None if self.learned_model is None else
+                        self.learned_model["program"](self.device,
+                                                      self.dtype))
+        # Na..Cl: the port and the reference take row 3 only when told
+        self.row3 = bool((sp > 10).any())
         self.species_np = sp
         self.species = torch.as_tensor(sp, device=self.device)
         self.base = torch.as_tensor(base, dtype=self.dtype,
                                     device=self.device)
         self.A = sp.shape[1]
         self.const, self.tables, self.cfg, self.K = program.build(
-            self.config, self.traffic["scf"], sp, self.device)
+            self.config, self.traffic["scf"], sp, self.device, self.row3)
         self.n_solver = packed_solver_size(self.K, self.A)
         self.block = max(1, BLOCK_PAIRS // max(1, self.A * (self.A - 1) // 2))
         self.attempted = 0
@@ -84,13 +110,18 @@ class Cell:
     def reference(self, control: bool, scf: str = "scf"):
         """The float64 reference (or the control: float32 with TF32 on)
         with the traffic's SCF settings (``scf``) or the reference's own
-        SCF (``reference_scf``: exact eigensolves, a tight criterion)."""
+        SCF (``reference_scf``: exact eigensolves, a tight criterion), with
+        the plain side of the learned model at the same precision."""
+        dtype = torch.float32 if control else torch.float64
+        lm = self.learned_model
+        learned = None if lm is None else lm["reference"](self.device, dtype)
         if control:
             return Reference(self.config["method"], torch.float32,
                              self.device, self.K, self.traffic["scf"],
-                             control=True)
+                             control=True, learned=learned, row3=self.row3)
         return Reference(self.config["method"], torch.float64, self.device,
-                         self.K, self.traffic[scf])
+                         self.K, self.traffic[scf], learned=learned,
+                         row3=self.row3)
 
     def span(self, name):
         return trace.span(name, self.tracing)
@@ -104,7 +135,8 @@ class XLCell(Cell):
         self.v0 = inputs.velocities(
             self.species, float(self.config["assumed"]["temperature_k"]),
             self.dtype, gen)
-        self.md = program.xlbomd(self.const, self.tables, self.cfg, tr)
+        self.md = program.xlbomd(self.const, self.tables, self.cfg, tr,
+                                 self.learned)
         with self.span("bootstrap"):
             state = self.md.initialize(self.species, self.x0,
                                        velocities=self.v0)
@@ -277,7 +309,7 @@ class SPCell(Cell):
         x = self.coords(r)
         with self.span("force"):
             f, out = program.force(self.const, self.tables, self.cfg,
-                                   self.species, x)
+                                   self.species, x, self.learned)
         if keep:
             idx = self.pick(r)
             self.kept.append({"r": r, "idx": idx, "f": f[idx],

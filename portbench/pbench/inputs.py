@@ -1,7 +1,8 @@
 """Frozen input generators: the benchmark's own copies of the port's test
 molecules (``utils/molecules.py``: ``MOLECULES``, ``make_alkane`` and the
 round-robin of ``make_batch``), so a later change to the port cannot move
-the yardstick.
+the yardstick, and the molecule sets that configurations bring as files
+(``molecules/<g>.json``).
 
 Geometries and velocities are drawn from a ``torch.Generator`` on the
 device the cell runs on, seeded from ``--seed``: the same seed on the same
@@ -10,10 +11,16 @@ geometry by the same call.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import json
+import os
+from typing import Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from reference.seqm.constants import _MASS
+
+BENCH = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # (species, coords in Angstrom), species sorted by descending Z
 MOLECULES = {
@@ -52,8 +59,8 @@ MOLECULES = {
     ),
 }
 
-# standard atomic weights (g/mol) of the elements the configurations use
-MASS = {1: 1.00790, 6: 12.01100, 7: 14.00670, 8: 15.99940}
+# standard atomic weights (g/mol), the reference's table: H..Ar
+MASS = {z: m for z, m in enumerate(_MASS) if m > 0.0}
 # sqrt(Kelvin / (g/mol)) in Angstrom/fs
 VEL_SCALE = 0.9118367323190634e-3
 
@@ -82,21 +89,65 @@ def make_alkane(n_carbons: int) -> Tuple[np.ndarray, np.ndarray]:
     return species.astype(np.int64), coords
 
 
-def templates(config: dict) -> Sequence[Tuple[np.ndarray, np.ndarray]]:
+def geometries(name: str, bench_dir: str = BENCH
+               ) -> Sequence[Tuple[np.ndarray, np.ndarray]]:
+    """The molecules of ``molecules/<name>.json``: ``{"molecules": [{"name",
+    "species", "coordinates" (Angstrom)}, ...]}``, species sorted by
+    descending Z as in ``MOLECULES`` (heavy atoms first)."""
+    with open(os.path.join(bench_dir, "molecules", name + ".json")) as fh:
+        mols = json.load(fh)["molecules"]
+    out = []
+    for m in mols:
+        z = np.asarray(m["species"], np.int64)
+        x = np.asarray(m["coordinates"], np.float64)
+        if z.ndim != 1 or x.shape != (len(z), 3):
+            raise ValueError(f"molecules/{name}.json: {m['name']} needs one "
+                             "(x, y, z) per atom")
+        if (z < 1).any() or (np.diff(z) > 0).any():
+            raise ValueError(f"molecules/{name}.json: {m['name']} needs its "
+                             "atomic numbers, all 1 or more, in descending "
+                             "order")
+        out.append((z, x))
+    return out
+
+
+def templates(config: dict, bench_dir: str = BENCH
+              ) -> Sequence[Tuple[np.ndarray, np.ndarray]]:
     """The configuration's molecules as (species, coords) pairs: the named
-    small organics, or the alkanes of ``alkane_carbons``."""
+    small organics, the alkanes of ``alkane_carbons``, or the file named
+    by ``geometries``."""
+    given = [k for k in ("molecules", "alkane_carbons", "geometries")
+             if k in config]
+    if len(given) != 1:
+        raise ValueError("a configuration names exactly one of molecules, "
+                         f"alkane_carbons and geometries, not {given}")
     if "molecules" in config:
         return [(np.asarray(MOLECULES[n][0], np.int64),
                  np.asarray(MOLECULES[n][1], np.float64))
                 for n in config["molecules"]]
+    if "geometries" in config:
+        return geometries(config["geometries"], bench_dir)
     return [make_alkane(int(k)) for k in config["alkane_carbons"]]
 
 
-def base_batch(config: dict, nmol: int) -> Tuple[np.ndarray, np.ndarray]:
+def check_elements(species: np.ndarray, covered: Mapping[str, Sequence[int]]):
+    """Raise ValueError naming each element of ``species`` (padding 0
+    aside) that a table of ``covered`` (its name -> the atomic numbers it
+    covers) lacks."""
+    present = {int(z) for z in np.unique(species) if z > 0}
+    for what, zs in covered.items():
+        missing = sorted(present - {int(z) for z in zs})
+        if missing:
+            raise ValueError(f"the molecules hold Z={missing}, which "
+                             f"{what} does not cover")
+
+
+def base_batch(config: dict, nmol: int, bench_dir: str = BENCH
+               ) -> Tuple[np.ndarray, np.ndarray]:
     """(species (nmol, A) int64, coords (nmol, A, 3) float64): the
     templates round-robin, zero padded to the configuration's ``molsize``
     (``make_batch`` without the jitter)."""
-    mols = templates(config)
+    mols = templates(config, bench_dir)
     A = int(config["molsize"])
     species = np.zeros((len(mols), A), np.int64)
     coords = np.zeros((len(mols), A, 3))

@@ -13,7 +13,7 @@ program's state.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -21,6 +21,7 @@ from .seqm.models.energy import SEQMConfig, build, force
 from .seqm.models.xlbomd import energy_xl
 from .seqm.ops.density import (orbital_mask, packed_solver_size,
                                static_pack_mat, static_pack_vec)
+from .seqm.parameters import load_element_tables
 from .seqm.scf import SCFConfig
 
 # (eV/Angstrom)/(g/mol) in Angstrom/fs^2
@@ -53,20 +54,32 @@ def tf32(on: bool):
          torch.backends.cudnn.allow_tf32) = old
 
 
+def method_elements(method: str) -> Tuple[int, ...]:
+    """The atomic numbers that the method's parameter tables cover (those
+    with a one-centre s energy)."""
+    U_ss = load_element_tables(method, device="cpu",
+                               dtype=torch.float64)["U_ss"]
+    return tuple(int(z) for z in torch.nonzero(U_ss).flatten())
+
+
 class Reference:
     """The frozen copy at one precision for one batch's static packed
-    layout (heavy count K)."""
+    layout (heavy count K).  ``learned``: the plain side of a parameter
+    model, f(species, coordinates) -> {name: (nmol, A)}, at this precision,
+    or None (the method's tables); ``row3``: molecules with an element of
+    row 3."""
 
     def __init__(self, method: str, dtype, device, K: int, scf: dict,
-                 control: bool = False):
+                 control: bool = False, learned=None, row3: bool = False):
         self.dtype = dtype
         self.control = control
         self.K = K
+        self.learned = learned
         kw = dict(scf)
         kw["converger"] = tuple(kw["converger"])
         self.const, self.tables, self.cfg = build(
             method, dtype=dtype, device=device,
-            scf=SCFConfig(pack_heavy=K, **kw))
+            scf=SCFConfig(pack_heavy=K, **kw), row3=row3)
 
     def _ctx(self):
         return tf32(self.control)
@@ -83,7 +96,8 @@ class Reference:
             iters = []
             with torch.enable_grad():
                 out = energy_xl(self.const, self.tables, self.cfg, species,
-                                coords, P.to(self.dtype), packed_io=True,
+                                coords, P.to(self.dtype),
+                                learned=self.learned, packed_io=True,
                                 iters_out=iters)
                 (g,) = torch.autograd.grad(out.Hf.sum(), coords)
         return -g.detach(), out.Hf.detach(), out.D.detach(), iters[0]
@@ -118,7 +132,7 @@ class Reference:
         and the notconverged flags."""
         with self._ctx():
             f, out = force(self.const, self.tables, self.cfg, species,
-                           coords.to(self.dtype))
+                           coords.to(self.dtype), learned=self.learned)
         n_st = packed_solver_size(self.K, species.shape[1])
         return {"f": f, "Hf": out.Hf, "P": out.P,
                 "Pp": static_pack_mat(out.P, self.K, n_st),

@@ -68,8 +68,9 @@ def run(spec: dict, seed: int, seconds: float, tracing: bool, device,
     """One run of one cell; returns the result object (without printing).
     ``cell_hook`` (tests) receives the cell after set-up."""
     import torch
-    from pbench import cells, registry
-    cell = cells.KINDS[spec["traffic"]["kind"]](spec, seed, device, tracing)
+    from pbench import registry
+    cell = registry.kind(spec["bench_dir"], spec["traffic"]["kind"])(
+        spec, seed, device, tracing)
     cell.setup()
     if cell_hook is not None:
         cell_hook(cell)

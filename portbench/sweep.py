@@ -29,10 +29,11 @@ def point(workload: str, batch: int, seed: int, units: int) -> dict:
     spec["traffic"]["batch"] = batch
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cell = cells.KINDS[spec["traffic"]["kind"]](spec, seed, "cuda:0", True)
+    cell = registry.kind(spec["bench_dir"], spec["traffic"]["kind"])(
+        spec, seed, "cuda:0", True)
     cell.setup()
     t_setup = time.perf_counter() - t0
-    xl = spec["traffic"]["kind"] == "xlbomd"
+    xl = isinstance(cell, cells.XLCell)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(units + 1)]
     ev[0].record()
     t0 = time.perf_counter()
