@@ -116,7 +116,11 @@ def _atom_parameters(tables, method, sys: System,
                      learned: Optional[LearnedParams],
                      coordinates) -> Dict[str, torch.Tensor]:
     if callable(learned):
-        learned = learned(sys.species, coordinates)
+        with span("learned"):
+            nmol, A = sys.species.shape
+            count("molecules", nmol)
+            count("atoms", nmol * A)
+            learned = learned(sys.species, coordinates)
     return gather_atom_parameters(tables, method, sys.species, learned)
 
 

@@ -17,6 +17,7 @@ from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..constants import (_QN, Constants, LENGTH_CONVERSION_FACTOR,
                          OVERLAP_CUTOFF)
@@ -31,10 +32,13 @@ from .tetci import (WPack, WPackGrid, WPackGridSplit, WPackSplit,
                     to_grid)
 
 
-def atom_multipoles(const: Constants, species, p: Dict[str, torch.Tensor]):
+def atom_multipoles(const: Constants, species, p: Dict[str, torch.Tensor],
+                    K: Optional[int] = None):
     """Per-atom multipole separations & Klopman additive terms
     (cf. two_elec_two_center_int.py:22-43): dict of dd, qq, rho0, rho1,
-    rho2 shaped like ``species``."""
+    rho2 shaped like ``species``.  With the batch's heavy count ``K`` (the
+    descending-Z sort puts every heavy atom in the first K slots) rho1 and
+    rho2 are solved on those slots alone."""
     Z = species
     is_h = Z == 1
     is_x = Z > 2
@@ -55,8 +59,13 @@ def atom_multipoles(const: Constants, species, p: Dict[str, torch.Tensor]):
 
     rho0 = torch.where(has_core, 0.5 * 27.21 / torch.where(has_core, gss, one),
                        zero)
-    rho1 = rho1_additive(hsp, dd, is_x)
-    rho2 = rho2_additive(hpp, qq, is_x)
+    if K is None:
+        rho1 = rho1_additive(hsp, dd, is_x)
+        rho2 = rho2_additive(hpp, qq, is_x)
+    else:
+        pad = (0, Z.shape[-1] - K)
+        rho1 = F.pad(rho1_additive(hsp[:, :K], dd[:, :K], is_x[:, :K]), pad)
+        rho2 = F.pad(rho2_additive(hpp[:, :K], qq[:, :K], is_x[:, :K]), pad)
     return {"dd": dd, "qq": qq, "rho0": rho0, "rho1": rho1, "rho2": rho2}
 
 
@@ -204,7 +213,7 @@ def hcore_split(const: Constants, sys: System, p: Dict[str, torch.Tensor],
     am = sys.atom_mask
     z4 = lambda t: torch.zeros_like(t)                       # noqa: E731
 
-    mp = atom_multipoles(const, sys.species, p)
+    mp = atom_multipoles(const, sys.species, p, K)
     tore = const.tore[sys.species]
     zeta = torch.stack([p["zeta_s"], p["zeta_p"]], dim=-1)   # (nmol, A, 2)
     qn = const.qn_int[sys.species]
@@ -443,7 +452,7 @@ def hcore_dense_split(
     qn = const.qn_int[sys.species]
     zeta = torch.stack([p["zeta_s"], p["zeta_p"]], dim=-1)   # (nmol, A, 2)
     tore = const.tore[sys.species]
-    mp = atom_multipoles(const, sys.species, p)
+    mp = atom_multipoles(const, sys.species, p, K)
     bi_full = torch.stack([p["beta_s"], p["beta_p"], p["beta_p"],
                            p["beta_p"]], dim=-1)             # (nmol, A, 4)
     row = lambda v, s: v[:, s, None]                        # noqa: E731

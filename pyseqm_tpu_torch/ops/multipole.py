@@ -44,17 +44,18 @@ def dd_qq(qn, zs, zp):
 
 
 def _secant(h_of, target, x1, eps):
-    """Fixed-iteration masked secant solve h_of(x) = target."""
+    """Fixed-iteration masked secant solve h_of(x) = target (each point's
+    h evaluated once)."""
     x2 = x1 + 0.04
+    h1 = h_of(x1)
     for _ in range(_N_SECANT):
-        h1 = h_of(x1)
         h2 = h_of(x2)
         denom = h2 - h1
         step_ok = torch.abs(denom) > eps
         safe_denom = torch.where(step_ok, denom, torch.ones_like(denom))
         x3 = torch.where(step_ok, x1 + (x2 - x1) * (target - h1) / safe_denom,
                          x2)
-        x1, x2 = x2, x3
+        x1, x2, h1 = x2, x3, h2
     return x2
 
 
@@ -68,8 +69,10 @@ class _Rho1(torch.autograd.Function):
         D1 = torch.where(mask, d1, torch.ones_like(d1))
         x0 = torch.sign(hsp) * (torch.abs(hsp) / D1 ** 2) ** (1.0 / 3.0)
 
+        c = 4.0 * D1 ** 2
+
         def h_of(d):
-            return 0.5 * d - 0.5 / torch.sqrt(4.0 * D1 ** 2 + 1.0 / d ** 2)
+            return 0.5 * d - 0.5 / torch.sqrt(c + 1.0 / d ** 2)
 
         d = _secant(h_of, hsp, x0, eps)
         rho1 = torch.where(mask, 0.5 / d, torch.zeros_like(d))
@@ -102,9 +105,12 @@ class _Rho2(torch.autograd.Function):
         D2 = torch.where(mask, d2, torch.ones_like(d2))
         x0 = torch.sign(hpp) * (torch.abs(hpp) / 3.0 / D2 ** 4) ** 0.2
 
+        c4, c8 = 4.0 * D2 ** 2, 8.0 * D2 ** 2
+
         def h_of(q):
-            return (0.25 * q - 0.5 / torch.sqrt(4.0 * D2 ** 2 + 1.0 / q ** 2)
-                    + 0.25 / torch.sqrt(8.0 * D2 ** 2 + 1.0 / q ** 2))
+            iq2 = 1.0 / q ** 2
+            return (0.25 * q - 0.5 / torch.sqrt(c4 + iq2)
+                    + 0.25 / torch.sqrt(c8 + iq2))
 
         q = _secant(h_of, hpp, x0, eps)
         rho2 = torch.where(mask, 0.5 / q, torch.zeros_like(q))
@@ -130,9 +136,17 @@ class _Rho2(torch.autograd.Function):
         return torch.where(mask, g_hpp, z), torch.where(mask, g_d2, z), None
 
 
+# The additive terms are solved and differentiated in float64 whatever the
+# inputs' precision (one value per atom).  Where hsp or hpp nears 0, as a
+# learned one can (the trained HIP-NN's oxygen h_sp lies about 0), rho
+# grows without bound; at float32 the implicit derivatives' denominators
+# then cancel (r / (D^2 + r^2)^1.5 against 1 / r^2 once D^2 / r^2 nears the
+# float32 epsilon) and the secant can land on d = 0, and the force goes NaN.
+
+
 def rho1_additive(hsp_ev, d1, mask):
-    return _Rho1.apply(hsp_ev, d1, mask)
+    return _Rho1.apply(hsp_ev.double(), d1.double(), mask).to(hsp_ev.dtype)
 
 
 def rho2_additive(hpp_ev, d2, mask):
-    return _Rho2.apply(hpp_ev, d2, mask)
+    return _Rho2.apply(hpp_ev.double(), d2.double(), mask).to(hpp_ev.dtype)

@@ -378,8 +378,12 @@ def diatom_overlap_xh(qni, qnj, xij, rij, zeta_i, zsj, precise=False,
     (``qn_host`` as in diatom_overlap).  Returns (..., 4)."""
     jcall2 = (qni == 1) & (qnj == 1)
     jcall3 = (qni == 2) & (qnj == 1)
-    zsi, zpi = zeta_i[..., 0], zeta_i[..., 1]
     one = torch.ones_like(rij)
+    # a hydrogen in the packed layout's heavy block is s-only: a 1 stands
+    # in for its zeta_p, as in diatom_overlap (a learned one near 0 turns
+    # the unread combinations' float32 cotangents NaN)
+    zsi = zeta_i[..., 0]
+    zpi = torch.where(qni > 1, zeta_i[..., 1], one)
     S = _combinations(rij, zsi, zpi, zsj, one, jcall2, jcall3,
                       torch.zeros_like(jcall3), precise, 3)
     if row3:

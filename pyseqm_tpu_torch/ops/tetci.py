@@ -39,6 +39,15 @@ from .wapply_kernel import w_apply
 # Local-frame integrals: 22 unique values per pair (MOPAC repp order)
 # ------------------------------------------------------------------
 
+def _dinv(x2, y2, d):
+    """1/sqrt(x2) - 1/sqrt(y2), given d = y2 - x2 exactly: with no
+    cancellation where a large additive term (a learned h_sp near 0 makes
+    rho1 run to 1e2-1e5 Bohr) swamps the two squared distances, so its
+    value and its derivatives keep their relative precision."""
+    sx, sy = torch.sqrt(x2), torch.sqrt(y2)
+    return d / (sx * sy * (sx + sy))
+
+
 def local_frame_integrals(r, tore_i, tore_j, da, db, qa0, qb0,
                           rho0a, rho0b, rho1a, rho1b, rho2a, rho2b):
     """The 22 unique local-frame (mu nu|la si) integrals and core columns.
@@ -66,45 +75,55 @@ def local_frame_integrals(r, tore_i, tore_j, da, db, qa0, qb0,
     rsq = lambda t, add: sq(t ** 2 + add)                # noqa: E731
 
     ee = EV / rsq(r, aee)
-    dze = -ev1 / rsq(r + da, ade) + ev1 / rsq(r - da, ade)
+    dze = ev1 * _dinv((r - da) ** 2 + ade, (r + da) ** 2 + ade, 4.0 * r * da)
     e_qe = ev1 / rsq(r, aqe)
     qzze = ev2 / rsq(r - qa, aqe) + ev2 / rsq(r + qa, aqe) - e_qe
     qxxe = ev1 / sq(r ** 2 + qa ** 2 + aqe) - e_qe
-    edz = -ev1 / rsq(r - db, aed) + ev1 / rsq(r + db, aed)
+    edz = ev1 * _dinv((r + db) ** 2 + aed, (r - db) ** 2 + aed, -4.0 * r * db)
     e_eq = ev1 / rsq(r, aeq)
     eqzz = ev2 / rsq(r - qb, aeq) + ev2 / rsq(r + qb, aeq) - e_eq
     eqxx = ev1 / sq(r ** 2 + qb ** 2 + aeq) - e_eq
 
-    dxdx = ev1 / sq(r ** 2 + (da - db) ** 2 + axx) \
-        - ev1 / sq(r ** 2 + (da + db) ** 2 + axx)
-    dzdz = ev2 / rsq(r + da - db, axx) + ev2 / rsq(r - da + db, axx) \
-        - ev2 / rsq(r - da - db, axx) - ev2 / rsq(r + da + db, axx)
+    # the dipole terms pair the point charges that share an additive term
+    # (the pairs' differences of squared distances taken exactly, _dinv)
+    dxdx = ev1 * _dinv(r ** 2 + (da - db) ** 2 + axx,
+                       r ** 2 + (da + db) ** 2 + axx, 4.0 * da * db)
+    dzdz = ev2 * (_dinv((r + da - db) ** 2 + axx, (r + da + db) ** 2 + axx,
+                        4.0 * (r + da) * db)
+                  + _dinv((r - da + db) ** 2 + axx, (r - da - db) ** 2 + axx,
+                          -4.0 * (r - da) * db))
 
-    ev2_p_adq = ev2 / rsq(r + da, adq)
-    ev2_m_adq = ev2 / rsq(r - da, adq)
-    ev2_m_aqd = ev2 / rsq(r - db, aqd)
-    ev2_p_aqd = ev2 / rsq(r + db, aqd)
+    dq_r = _dinv((r - da) ** 2 + adq, (r + da) ** 2 + adq, 4.0 * r * da)
+    qd_r = _dinv((r - db) ** 2 + aqd, (r + db) ** 2 + aqd, 4.0 * r * db)
 
-    dzqzz = (-ev3 / rsq(r + da - qb, adq) + ev3 / rsq(r - da - qb, adq)
-             - ev3 / rsq(r + da + qb, adq) + ev3 / rsq(r - da + qb, adq)
-             - ev2_m_adq + ev2_p_adq)
-    qzzdz = (-ev3 / rsq(r + qa - db, aqd) + ev3 / rsq(r + qa + db, aqd)
-             - ev3 / rsq(r - qa - db, aqd) + ev3 / rsq(r - qa + db, aqd)
-             + ev2_m_aqd - ev2_p_aqd)
-    dzqxx = (ev2_p_adq - ev2 / sq((r + da) ** 2 + qb ** 2 + adq)
-             - ev2_m_adq + ev2 / sq((r - da) ** 2 + qb ** 2 + adq))
-    qxxdz = (ev2_m_aqd - ev2 / sq((r - db) ** 2 + qa ** 2 + aqd)
-             - ev2_p_aqd + ev2 / sq((r + db) ** 2 + qa ** 2 + aqd))
+    dzqzz = (ev3 * (_dinv((r - da - qb) ** 2 + adq, (r + da - qb) ** 2 + adq,
+                          4.0 * (r - qb) * da)
+                    + _dinv((r - da + qb) ** 2 + adq,
+                            (r + da + qb) ** 2 + adq, 4.0 * (r + qb) * da))
+             - ev2 * dq_r)
+    qzzdz = (ev3 * (_dinv((r + qa + db) ** 2 + aqd, (r + qa - db) ** 2 + aqd,
+                          -4.0 * (r + qa) * db)
+                    + _dinv((r - qa + db) ** 2 + aqd,
+                            (r - qa - db) ** 2 + aqd, -4.0 * (r - qa) * db))
+             + ev2 * qd_r)
+    dzqxx = ev2 * (_dinv((r - da) ** 2 + qb ** 2 + adq,
+                         (r + da) ** 2 + qb ** 2 + adq, 4.0 * r * da) - dq_r)
+    qxxdz = ev2 * (qd_r - _dinv((r - db) ** 2 + qa ** 2 + aqd,
+                                (r + db) ** 2 + qa ** 2 + aqd, 4.0 * r * db))
     # off-axis multipoles use the single charge separation (qa0/qb0),
     # cf. repp.f SQR(54)-SQR(72)
-    dxqxz = (-ev2 / sq((da - qb0) ** 2 + (r - qb0) ** 2 + adq)
-             + ev2 / sq((da - qb0) ** 2 + (r + qb0) ** 2 + adq)
-             + ev2 / sq((da + qb0) ** 2 + (r - qb0) ** 2 + adq)
-             - ev2 / sq((da + qb0) ** 2 + (r + qb0) ** 2 + adq))
-    qxzdx = (-ev2 / sq((qa0 - db) ** 2 + (r + qa0) ** 2 + aqd)
-             + ev2 / sq((qa0 - db) ** 2 + (r - qa0) ** 2 + aqd)
-             + ev2 / sq((qa0 + db) ** 2 + (r + qa0) ** 2 + aqd)
-             - ev2 / sq((qa0 + db) ** 2 + (r - qa0) ** 2 + aqd))
+    dxqxz = ev2 * (_dinv((da - qb0) ** 2 + (r + qb0) ** 2 + adq,
+                         (da - qb0) ** 2 + (r - qb0) ** 2 + adq,
+                         -4.0 * r * qb0)
+                   + _dinv((da + qb0) ** 2 + (r - qb0) ** 2 + adq,
+                           (da + qb0) ** 2 + (r + qb0) ** 2 + adq,
+                           4.0 * r * qb0))
+    qxzdx = ev2 * (_dinv((qa0 - db) ** 2 + (r - qa0) ** 2 + aqd,
+                         (qa0 - db) ** 2 + (r + qa0) ** 2 + aqd,
+                         4.0 * r * qa0)
+                   + _dinv((qa0 + db) ** 2 + (r + qa0) ** 2 + aqd,
+                           (qa0 + db) ** 2 + (r - qa0) ** 2 + aqd,
+                           -4.0 * r * qa0))
 
     ev2_aqq = ev2 / sq(r ** 2 + aqq)
     ev2_qa_aqq = ev2 / sq(r ** 2 + qa ** 2 + aqq)
@@ -180,7 +199,7 @@ def local_frame_integrals_xh(r, da, qa0, rho0a, rho0b, rho1a, rho2a):
     aqe = (rho2a + rho0b) ** 2
     rsq = lambda t, add: torch.sqrt(t ** 2 + add)           # noqa: E731
     ee = EV / rsq(r, aee)
-    dze = -ev1 / rsq(r + da, ade) + ev1 / rsq(r - da, ade)
+    dze = ev1 * _dinv((r - da) ** 2 + ade, (r + da) ** 2 + ade, 4.0 * r * da)
     e_qe = ev1 / rsq(r, aqe)
     qzze = ev2 / rsq(r - qa, aqe) + ev2 / rsq(r + qa, aqe) - e_qe
     qxxe = ev1 / torch.sqrt(r ** 2 + qa ** 2 + aqe) - e_qe

@@ -21,6 +21,11 @@ the host when it was launched.  The names, one per layer:
   counts ``molecules``;
 - ``system``: the species checks, ``make_system`` and the per-atom
   parameters;
+- ``learned``: inside ``system``, the forward of a learned-parameter
+  callable (``learned=``; a mapping of values opens none); counts
+  ``molecules`` and ``atoms`` (atom slots, padding included: the
+  network's dense pair grid computes every slot); its backward is
+  charged to ``backward``;
 - ``integrals``: the core Hamiltonian and the two-electron integrals;
 - ``scf``: ``scf_solve``; counts ``iterations``, ``polish`` and
   ``reads`` (host reads of the convergence flags);

@@ -24,7 +24,8 @@ T_MAIN, T_ENGINE = 1, 2          # the profiler's thread ids of launches
 MD = ("driver_span_ms.md", "models_span_ms.md", "integrals_span_ms.md",
       "fock_span_ms.md", "density_span_ms.md", "energy_span_ms.md",
       "sp2_iterations.md", "integrals_idle_ms.md",
-      "overlap_kernel_share.md")
+      "overlap_kernel_share.md", "learned_span_ms.md",
+      "learned_roofline.md")
 SP = ("integrals_span_ms.sp", "fock_span_ms.sp", "density_span_ms.sp",
       "eigh_sweeps.sp", "scf_reads.sp", "scf_read_idle_ms.sp",
       "overlap_kernel_share.sp")
@@ -100,6 +101,9 @@ def test_xl_readers_attribute_by_launch(monkeypatch):
     assert got["energy_span_ms.md"] == pytest.approx(20e-6)
     assert got["sp2_iterations.md"] == pytest.approx(17.5)
     assert got["integrals_idle_ms.md"] == pytest.approx(70e-6)
+    # no learned model, no learned span: its readers find nothing
+    assert got["learned_span_ms.md"] is None
+    assert got["learned_roofline.md"] is None
     att = spans.attribution(data)
     assert att.roots == [0]
     assert att.self_ns["backward"] == 100
@@ -190,3 +194,34 @@ def test_overlap_kernel_share(metric, counts, share, monkeypatch):
                (350, T_MAIN, 350, 360)]
     got = read_all([metric], {"a": session(kernels)}, recs, monkeypatch)
     assert got[metric] == (None if share is None else pytest.approx(share))
+
+
+def test_learned_readers(monkeypatch):
+    """The learned network's self device time per step, and its forward's
+    operations (from the published widths and the span's counts) at the
+    FP32 peak over that time; the network's time leaves ``system``'s."""
+    from pbench import hipnn_ops, roofline
+    recs = [rec(0, "md.step", 0, 1000),
+            rec(1, "model.force", 10, 900, 0, 0, counts={"molecules": 4}),
+            rec(2, "system", 20, 80, 1, 0),
+            rec(3, "learned", 30, 70, 2, 0,
+                counts={"molecules": 4, "atoms": 32}),
+            rec(4, "integrals", 80, 300, 1, 0),
+            rec(5, "md.step", 2000, 3000),
+            rec(6, "learned", 2100, 2200, 5, 5,
+                counts={"molecules": 4, "atoms": 32})]
+    kernels = [(25, T_MAIN, 0, 10_000),            # system
+               (40, T_MAIN, 10_000, 410_000),      # learned
+               (60, T_MAIN, 410_000, 610_000),     # learned
+               (100, T_MAIN, 610_000, 620_000),    # integrals
+               (2150, T_MAIN, 700_000, 1_300_000)]  # learned, 2nd step
+    data = {"a": session(kernels, units=2)}
+    got = read_all(["learned_span_ms.md", "learned_roofline.md",
+                    "models_span_ms.md"], data, recs, monkeypatch)
+    assert got["learned_span_ms.md"] == pytest.approx(0.6)
+    assert got["models_span_ms.md"] == pytest.approx(5e-3)
+    flops = 2 * hipnn_ops.forward_flops(4, 32)
+    assert flops == 2 * 4 * 3_935_296
+    assert got["learned_roofline.md"] == pytest.approx(
+        100.0 * flops / roofline.PEAK_FP32 / 1.2e-3)
+    assert got["learned_roofline.md"] == pytest.approx(0.03916, abs=1e-5)

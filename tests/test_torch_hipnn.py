@@ -232,3 +232,144 @@ def test_learned_hydrogen_p_exponent_keeps_forces_finite():
     assert torch.isfinite(f).all()
     # the hydrogens' zeta_p enters nothing
     assert torch.equal(f, ref)
+
+
+def test_learned_p_exponent_of_a_heavy_block_hydrogen_keeps_forces_finite():
+    """The X-H overlap column reads no p exponent of a hydrogen that the
+    packed layout places in the heavy block (NH3's first hydrogen beside
+    C2H6's second carbon), so a learned one near 0 and moving with the
+    geometry (the trained model predicted -1.7e-8 for such an NH3
+    hydrogen at step 4 of a 163,840-molecule XL-BOMD run) leaves the force
+    finite and as the table's (the column took it as given, and its
+    unread combinations' float32 cotangents turned NaN)."""
+    sp, co = make_batch(2, 8, names=("NH3", "C2H6"), jitter=0.02, seed=1)
+    K = pt.packed_heavy_count(sp)
+    assert K == 2
+    const, tables, cfg = pt.build(
+        "PM3", dtype=torch.float32, device=CPU,
+        scf=SCFConfig(eps=1.0e-5, converger=(2,), use_sp2=True,
+                      sp2_eps=1.0e-4, pack_heavy=K))
+
+    def learned(s, x):
+        zp = torch.where(s == 1, -1.7e-8 * (1.0 + 0.01 * x[..., 0]),
+                         tables["zeta_p"][s])
+        return {"zeta_p": zp}
+
+    x = torch.tensor(co, dtype=torch.float32)
+    f, out = pt.force(const, tables, cfg, sp, x, learned=learned)
+    ref, _ = pt.force(const, tables, cfg, sp, x)
+    assert torch.isfinite(f).all()
+    assert torch.equal(f, ref)
+
+
+def test_rho1_at_float32_near_zero_h_sp():
+    """The Klopman additive term rho1 and its derivatives at float32 equal
+    float64's where h_sp nears 0 (the trained model's oxygen h_sp
+    lies about 0, and crossed it at step 119 of a 163,840-molecule XL-BOMD
+    run); the float32 solve had drifted there by up to 100% and its
+    derivative's denominator cancelled to 0, turning the force NaN."""
+    from pyseqm_tpu_torch.ops.multipole import rho1_additive
+    h = torch.tensor([-1e-3, -2.6e-4, -3e-5, -1e-6, 1e-6, 3e-5, 2.6e-4,
+                      1e-3, 0.5938])
+    d = torch.full_like(h, 0.27)
+    mask = torch.ones_like(h, dtype=torch.bool)
+    got = []
+    for dt in (torch.float32, F64):
+        hh = h.to(dt).requires_grad_(True)
+        dd = d.to(dt).requires_grad_(True)
+        r = rho1_additive(hh, dd, mask)
+        assert r.dtype == dt
+        got.append([r] + list(torch.autograd.grad(r.sum(), (hh, dd))))
+    for a, b in zip(*got):
+        assert torch.isfinite(a).all()
+        rel = ((a.double() - b) / b).abs().max()
+        assert rel < 1e-6, float(rel)
+
+
+@pytest.mark.parametrize("rho1", [2.0, 245.0, 5.0e4])
+def test_dipole_integrals_at_a_large_rho1_keep_their_derivative(rho1):
+    """The local-frame integrals that carry rho1 pair their point charges:
+    at float32 their value and their derivative in rho1 keep float64's
+    relative precision where rho1 swamps the distances (a learned h_sp
+    near 0; each unpaired term's derivative is ~1e8 times the pair's
+    difference at rho1 = 245, so it was rounding noise, and
+    drho1/dh_sp ~ 1e9 carried it into the force)."""
+    from pyseqm_tpu_torch.ops.tetci import (local_frame_integrals,
+                                            local_frame_integrals_xh)
+    # (r, da, db, qa0, qb0, rho0a, rho0b, rho1b, rho2a, rho2b) in Bohr:
+    # an O-C pair at 2.7 Bohr with PM3-like separations
+    geo = (2.7, 0.41, 0.75, 0.35, 0.62, 0.9, 1.2, 0.8, 0.7, 0.9)
+    got = []
+    for dt in (torch.float32, F64):
+        r, da, db, qa0, qb0, r0a, r0b, r1b, r2a, r2b = (
+            torch.tensor([v], dtype=dt) for v in geo)
+        r1a = torch.tensor([rho1], dtype=dt, requires_grad=True)
+        one = torch.ones_like(r)
+        ri, _, _ = local_frame_integrals(r, one, one, da, db, qa0, qb0, r0a,
+                                         r0b, r1a, r1b, r2a, r2b)
+        ri4 = local_frame_integrals_xh(r, da, qa0, r0a, r0b, r1a, r2a)
+        cols = torch.cat([ri[0], ri4[0]])
+        jac = torch.stack([torch.autograd.grad(c, r1a, retain_graph=True)[0]
+                           for c in cols])
+        got.append((cols.detach().double(), jac.double()))
+    (v32, j32), (v64, j64) = got
+    # the integrals that read rho1a: (so|ss), (so|so), (sp|sp), (so|oo),
+    # (so|pp), (sp|op), and the X-H (so|ss)
+    k = [1, 5, 6, 12, 13, 14, 23]
+    # (the (sp|op) pairs cancel once more: it lies ~1e5 below the others at
+    # rho1 = 245 and is held to their scale)
+    assert (j64[k].abs() > 0).all()
+    err_v = ((v32[k] - v64[k]).abs().max() / v64[k].abs().max())
+    err_j = ((j32[k] - j64[k]).abs().max() / j64[k].abs().max())
+    assert err_v < 1e-6, float(err_v)
+    assert err_j < 1e-5, float(err_j)
+    # and the others do not move with it
+    rest = [i for i in range(26) if i not in k]
+    assert (j32[rest] == 0).all() and (j64[rest] == 0).all()
+
+
+def test_energy_derivative_in_h_sp_near_0_at_float32():
+    """dHf/dh_sp of a CH3OH whose oxygen h_sp is -2.44e-4 eV (the trained
+    model's, at the molecule where a 163,840-molecule XL-BOMD run's float32
+    force missed float64's by 0.079 eV/A): within 1e-5 relative of float64
+    (it missed by 3.6e-3 before the dipole integrals paired their charges),
+    through the packed layout that solves rho1 on the heavy slots alone."""
+    sp, co = make_batch(1, 8, names=("CH3OH",), jitter=0.0, seed=0)
+    K = pt.packed_heavy_count(sp)
+    got = []
+    for dt, eps in ((torch.float32, 1e-6), (F64, 1e-10)):
+        const, tables, cfg = pt.build(
+            "PM3", dtype=dt, device=CPU,
+            scf=SCFConfig(eps=eps, converger=(2,), max_iter=1000,
+                          pack_heavy=K))
+        h = torch.tensor(-2.44e-4, dtype=dt, requires_grad=True)
+        out = pt.energy(const, tables, cfg, sp, torch.tensor(co, dtype=dt),
+                        learned={"h_sp": torch.where(
+                            torch.as_tensor(sp) == 8, h,
+                            tables["h_sp"][torch.as_tensor(sp)])})
+        got.append(float(torch.autograd.grad(out.Hf.sum(), h)[0]))
+    g32, g64 = got
+    assert abs(g64) > 10.0
+    assert abs(g32 - g64) < 1e-5 * abs(g64), (g32, g64)
+
+
+def test_heavy_slot_additive_terms_match_every_slot():
+    """atom_multipoles with the batch's heavy count solves rho1/rho2 on the
+    heavy slots alone and returns what the solve over every slot does, to
+    the bit (the hydrogens and padding read 0 either way)."""
+    from pyseqm_tpu_torch.models.energy import _atom_parameters
+    from pyseqm_tpu_torch.ops.hcore import atom_multipoles
+    sp, co = make_batch(3, 8, names=("NH3", "CH3OH", "C2H6"), jitter=0.02,
+                        seed=2)
+    K = pt.packed_heavy_count(sp)
+    for dt in (torch.float32, F64):
+        const, tables, cfg = pt.build("PM3", dtype=dt, device=CPU)
+        species = torch.as_tensor(sp)
+        sys = pt.make_system(const, species, torch.tensor(co, dtype=dt),
+                             heavy_count=K)
+        p = _atom_parameters(tables, "PM3", sys, None, sys.coordinates)
+        full, cut = (atom_multipoles(const, species, p),
+                     atom_multipoles(const, species, p, K))
+        for n in ("rho1", "rho2"):
+            assert torch.equal(full[n], cut[n]), n
+            assert (full[n][:, K:] == 0).all()

@@ -223,3 +223,28 @@ def test_profiler_trace_writes_span_track(single_point, tmp_path):
               and e["ts"] + e["dur"] <= force["ts"] + force["dur"]]
     assert len(inside) > 0.9 * len(ops)
     timing.reset()
+
+
+@pytest.mark.parametrize("learned", ["callable", "mapping", None])
+def test_learned_span(single_point, learned):
+    """A learned callable's forward is the span ``learned`` inside
+    ``system``, counting molecules and atom slots; a mapping of values,
+    or no model, opens none."""
+    s = single_point
+    zeta_s = s["tables"]["zeta_s"]
+    arg = {"callable": lambda species, x: {
+        "zeta_s": zeta_s[species] * (1.0 + 0.01 * torch.sin(x).sum(-1))},
+        "mapping": {"zeta_s": zeta_s[s["sp"]]}, None: None}[learned]
+    _, recs, _ = _profiled(lambda: pt.force(s["const"], s["tables"],
+                                            s["cfg"], s["sp"], s["co"],
+                                            learned=arg))
+    by = _by_name(recs)
+    if learned != "callable":
+        assert set(by) == FORCE_NAMES
+        return
+    assert set(by) == FORCE_NAMES | {"learned"}
+    (lr,) = by["learned"]
+    (system,) = by["system"]
+    assert lr.parent == system.index and lr.root == system.root
+    assert system.start_ns <= lr.start_ns <= lr.end_ns <= system.end_ns
+    assert lr.counts == {"molecules": NMOL, "atoms": s["sp"].numel()}
